@@ -6,16 +6,29 @@ Run from the root of a checkout on a machine with a CUDA GPU (it exits
 non-zero without one, and outside a checkout).  Phases:
 
 1. device and environment: the card's name and power limit, torch and
-   CUDA versions, the build of the CUDA kernels (``csrc/``);
-2. each kernel against its plain version on the card, at preset -8
-   shapes, bit for bit, with median times (CUDA events);
-3. the main path in f64: 120 s of seeded music-like stereo 16-bit 44.1 kHz
-   PCM, then 20 s of 24-bit 96 kHz, through the port's ``BatchEncoder`` at
-   ``Options.best()``; each stream must be byte-identical to the host
-   encoder ``FlacSampleWriter``;
-4. the main path in f32: the 120 s clip must decode losslessly (MD5);
-5. every kernel must have launched during phases 3-4;
-6. encode MB/s of PCM in f64 and f32 (median of 3, synchronised).
+   CUDA versions, the build of the CUDA kernels (``csrc/``, one ``nvcc``
+   per source) and of the native host engine, started together;
+2. the encode kernels against their plain versions on the card, at
+   preset -8 shapes, bit for bit, with median times (CUDA events);
+3. the encode path in f64: 120 s of seeded music-like stereo 16-bit
+   44.1 kHz PCM, then 20 s of 24-bit 96 kHz, through the port's
+   ``BatchEncoder`` at ``Options.best()``; each stream must be
+   byte-identical to the port's host encoder ``FlacSampleWriter``;
+4. the encode path in f32: the 120 s clip must decode losslessly (MD5);
+5. every encode kernel must have launched during phases 3-4;
+6. the decode kernel ``predict_lpc`` against its plain version, bit for
+   bit: the raw subframes the port's native parser returns for the 120 s
+   stream (preset -8 decode shapes), and seeded random rows in every tap
+   bucket; median times;
+7. the decode path: the three streams of phases 3-4 through the port's
+   ``BatchDecoder(device="cuda")``; the PCM must equal the input exactly,
+   and ``predict_lpc`` must have launched;
+8. every stream of ``tests/data/conformance/`` through
+   ``BatchDecoder(device="cuda", batch_frames=4)``; its PCM must hash to
+   the manifest's ``pcm_md5``;
+9. encode MB/s of PCM in f64 and f32, and decode MB/s of PCM with the
+   ``decode.parse`` and ``decode.reconstruct`` stage times (median of 3,
+   synchronised).
 
 Any failed check raises.  The last lines are a JSON summary of the
 kernels, the card's ``nvidia-smi`` name and power limit, and
@@ -24,6 +37,8 @@ kernels, the card's ``nvidia-smi`` name and power limit, and
 
 from __future__ import annotations
 
+import concurrent.futures
+import hashlib
 import io
 import json
 import os
@@ -37,6 +52,19 @@ import numpy as np
 SECONDS_16 = 120
 SECONDS_24 = 20
 BATCH_FRAMES = 256
+
+# the least time the card could take (NVIDIA H100 SXM data sheet at
+# 700 W): HBM bytes per second, and the float32 non-tensor-core rate,
+# used for the integer and float64 work here too, which makes each
+# bound a lower bound
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def music(seconds: float, rate: int, bps: int, seed: int) -> np.ndarray:
@@ -90,10 +118,11 @@ def max_abs_err(a, b) -> int:
 
 
 def check_kernels(dev, pcm16: np.ndarray):
-    """Phase 2: K1 and K2 against their plain versions at preset -8."""
+    """Phase 2: K1, K2 and the autocorrelation against their plain
+    versions at preset -8."""
     import torch
 
-    from flac_codec_tpu.encode import Options
+    from flac_codec_tpu_torch.encode import Options
     from flac_codec_tpu_torch.ops import (bitpack, decorrelate, framepack,
                                           lpc, packpanel)
     from flac_codec_tpu_torch.ops.common import (TYPE_FIXED, TYPE_LPC,
@@ -145,13 +174,19 @@ def check_kernels(dev, pcm16: np.ndarray):
     args = symbols
     ms = cuda_ms(lambda: packpanel.pack_symbols(*args, P))
     plain_ms = cuda_ms(lambda: packpanel.pack_symbols_plain(*args, P))
-    print(f"K2 pack_symbols: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+    live = int(args[3].sum())
+    # values, widths, ends (int32) and mask (bool) read once, panels and
+    # overflow flags written once; ~6 integer operations per live symbol
+    b2 = bound(B * M * 13 + B * P * 4 + B * 4, live * 6)
+    print(f"K2 pack_symbols: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}) "
           "(median of 5, planner lists)")
     results.append({
         "name": "pack_symbols", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/pack_symbols.cu",
         "replaces": "flac_codec_tpu/ops/packpanel.py:377",
-        "max_abs_err": max(k2.values()), "ms": ms, "plain_ms": plain_ms})
+        "max_abs_err": max(k2.values()), "ms": ms, "plain_ms": plain_ms,
+        **b2, "library_ms": None})
 
     # float64 autocorrelation + Levinson in the host's rounding, on the
     # planner's windowed candidate rows and on near-pure sines (the
@@ -179,18 +214,25 @@ def check_kernels(dev, pcm16: np.ndarray):
     if not same:
         raise AssertionError(f"autocorr_levinson disagrees with the host's "
                              f"numpy rounding: max_abs_err={err}")
-    print(f"autocorr_levinson: rows={windowed.shape[0]} N={N} M={M} "
+    R = windowed.shape[0]
+    print(f"autocorr_levinson: rows={R} N={N} M={M} "
           "bit-exact with the host encoder's numpy")
     ms = cuda_ms(lambda: lpc.autocorr_levinson(windowed, M))
     plain_ms = cuda_ms(lambda: lpc.autocorr_levinson_plain(windowed, M),
                        reps=3)
+    # rows read once; autocorrelation, coefficients and errors written
+    # once; (M+1) lags of N multiply-adds, and ~2 M^2 Levinson flops
+    b5 = bound(R * N * 8 + R * (M + 1 + M * 32 + M) * 8,
+               R * ((M + 1) * N * 2 + 2 * M * M))
     print(f"autocorr_levinson: kernel {ms:.4f} ms, plain (host numpy) "
-          f"{plain_ms:.4f} ms (median)")
+          f"{plain_ms:.4f} ms, bound {b5['bound_ms']:.4f} ms "
+          f"({b5['bound_by']}) (median)")
     results.append({
         "name": "autocorr_levinson", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/autocorr_levinson.cu",
         "replaces": "flac_codec_tpu/ops/lpc.py:35",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b5,
+        "library_ms": None})
 
     # K1 with random disjoint-bit panels: off % 32 == 0, spill words and
     # offsets near W - P included
@@ -223,20 +265,24 @@ def check_kernels(dev, pcm16: np.ndarray):
     ms = cuda_ms(lambda: packpanel.splice_subframes(panels, offs, W))
     plain_ms = cuda_ms(lambda: packpanel.splice_subframes_plain(panels,
                                                                 offs, W))
-    print(f"K1 splice_subframes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          "(median of 5)")
+    # panels and offsets read once, slots written once; two shifts and an
+    # OR per shifted panel word
+    b1 = bound(B * S * P * 4 + B * S * 4 + B * W * 4, B * S * (P + 1) * 3)
+    print(f"K1 splice_subframes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) (median of 5)")
     results.append({
         "name": "splice_subframes", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/splice.cu",
         "replaces": "flac_codec_tpu/ops/packpanel.py:454",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b1,
+        "library_ms": None})
     return results
 
 
 def encode_port(inter, rate, bps, analysis, dev):
     import torch
 
-    from flac_codec_tpu.encode import Options
+    from flac_codec_tpu_torch.encode import Options
     from flac_codec_tpu_torch.parallel.batch import BatchEncoder
 
     buf = io.BytesIO()
@@ -251,7 +297,7 @@ def encode_port(inter, rate, bps, analysis, dev):
 
 
 def encode_host(inter, rate, bps):
-    from flac_codec_tpu.encode import FlacSampleWriter, Options
+    from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
 
     buf = io.BytesIO()
     enc = FlacSampleWriter(buf, Options.best(), rate, bps, 2,
@@ -287,18 +333,161 @@ def check_identical(label, inter, rate, bps, root, dev):
                              f"host encoder's at byte {first} (frame "
                              f"~{frame}); streams saved to {out}")
     print(f"{label}: byte-identical to FlacSampleWriter")
-    return penc
+    return port, penc
+
+
+def lpc_rows(rng, orders, N, sample_bits=23):
+    """Seeded rows for predict_lpc: bounded samples run through a forward
+    predictor with coefficients scaled to a random shift in 0-15, so the
+    residuals fit int32.  Returns int32 (x, q (R, 32), shift, order)."""
+    R = len(orders)
+    y = rng.integers(-(1 << sample_bits), 1 << sample_bits, (R, N))
+    shift = rng.integers(0, 16, R)
+    lim = np.minimum(2 << shift, (1 << 14) - 1)[:, None]
+    q = rng.integers(-lim, lim + 1, (R, 32))
+    q[np.arange(32)[None, :] >= np.asarray(orders)[:, None]] = 0
+    acc = np.zeros((R, N), np.int64)
+    for j in range(min(32, N - 1)):
+        acc[:, j + 1:] += q[:, j:j + 1] * y[:, :N - 1 - j]
+    x = np.where(np.arange(N)[None, :] >= np.asarray(orders)[:, None],
+                 y - (acc >> shift[:, None]), y)
+    return (x.astype(np.int32), q.astype(np.int32), shift.astype(np.int32),
+            np.asarray(orders, np.int32))
+
+
+def check_predict(dev, stream16: bytes):
+    """Phase 6: predict_lpc against predict_batch_plain, bit for bit, on
+    the 120 s stream's parsed subframes and on seeded random rows."""
+    import torch
+
+    from flac_codec_tpu_torch import native
+    from flac_codec_tpu_torch.decode import Decoder
+    from flac_codec_tpu_torch.ops.predict import predict_batch_plain
+    from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS,
+                                                         predict_lpc,
+                                                         tap_bucket)
+
+    dec = Decoder(io.BytesIO(stream16))
+    si = dec.streaminfo
+    raw = native.load().parse_frames_raw(
+        dec.r.np_view(), dec.r.pos, BATCH_FRAMES, si.sample_rate,
+        si.channels, si.bits_per_sample, si.maximum_block_size, None)
+    n, C, N = raw["buf"].shape
+    if n != BATCH_FRAMES:
+        raise AssertionError(f"native parser returned {n} frames, not "
+                             f"{BATCH_FRAMES}")
+    real = [torch.as_tensor(a, device=dev).reshape(n * C, -1)
+            .to(torch.int32).contiguous()
+            for a in (raw["buf"], raw["qcoeffs"])]
+    real += [torch.as_tensor(raw[k].reshape(-1).astype(np.int32),
+                             device=dev) for k in ("shift", "order")]
+    taps = tap_bucket(int(raw["order"].max()))
+    sets = [("120 s stream", real, taps)]
+    rng = np.random.default_rng(6)
+    for t in TAP_BUCKETS:
+        orders = rng.integers(1, t + 1, 2 * BATCH_FRAMES)
+        orders[:2] = [0, t]
+        sets.append((f"random taps={t}",
+                     [torch.as_tensor(a, device=dev)
+                      for a in lpc_rows(rng, orders, N)], t))
+    err = 0
+    for label, args, t in sets:
+        got = predict_lpc(*args, t)
+        want = predict_batch_plain(*args, t)
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        if e or not torch.equal(got, want):
+            raise AssertionError(f"predict_lpc ({label}) disagrees with its "
+                                 f"plain version: max_abs_err={e}")
+        err = max(err, e)
+        print(f"K3 predict_lpc {label}: R={args[0].shape[0]} N={N} taps={t} "
+              "bit-exact")
+    ms = cuda_ms(lambda: predict_lpc(*real, taps))
+    plain_ms = cuda_ms(lambda: predict_batch_plain(*real, taps), reps=3)
+    R = n * C
+    order = raw["order"].reshape(-1).astype(np.int64)
+    # residuals, taps, shift and order read once, int64 samples written
+    # once; one multiply and one add per tap of each predicted sample
+    b3 = bound(R * N * 4 + R * 32 * 4 + R * 8 + R * N * 8,
+               int((np.maximum(N - order, 0) * order * 2).sum()))
+    print(f"K3 predict_lpc: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b3['bound_ms']:.4f} ms ({b3['bound_by']}) (median, "
+          f"R={R} N={N} taps={taps})")
+    return {"name": "predict_lpc", "route": "cuda",
+            "source": "flac_codec_tpu_torch/csrc/predict_lpc.cu",
+            "replaces": "flac_codec_tpu/ops/predict_pallas.py:99",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b3,
+            "library_ms": None}
+
+
+def decode_port(data: bytes, dev, batch_frames=BATCH_FRAMES):
+    import torch
+
+    from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
+
+    with BatchDecoder(io.BytesIO(data), batch_frames=batch_frames,
+                      device=dev) as dec:
+        pcm = dec.read_all_device()
+        torch.cuda.synchronize()
+    return pcm, dec
+
+
+def check_corpus(root, dev):
+    """Phase 8: every conformance stream decodes on the card to its
+    manifest's pcm_md5."""
+    from flac_codec_tpu_torch import kernels
+
+    corpus = os.path.join(root, "tests", "data", "conformance")
+    with open(os.path.join(corpus, "manifest.json")) as f:
+        manifest = json.load(f)
+    n0 = kernels.LAUNCHES["predict_lpc"]
+    frames = [0, 0]
+    for name in sorted(manifest):
+        with open(os.path.join(corpus, name), "rb") as f:
+            data = f.read()
+        pcm, dec = decode_port(data, dev, batch_frames=4)
+        flat = pcm.cpu().numpy().reshape(-1).astype("<i8")
+        rec = manifest[name]
+        if (pcm.device.type != "cuda" or len(flat) != rec["total_samples"]
+                or hashlib.md5(flat.tobytes()).hexdigest()
+                != rec["pcm_md5"]):
+            raise AssertionError(f"conformance stream {name} decoded on the "
+                                 "card does not match its pcm_md5")
+        frames[0] += dec.device_frames
+        frames[1] += dec.host_frames
+    print(f"conformance corpus: {len(manifest)} streams match pcm_md5 on the "
+          f"card; {frames[0]} device frames, {frames[1]} host frames, "
+          f"{kernels.LAUNCHES['predict_lpc'] - n0} predict_lpc launches")
+
+
+def stage_ms(path: str, names) -> dict:
+    """Sum of each named stage's ms in a FLAC_TPU_TRACE JSONL file."""
+    out = dict.fromkeys(names, 0.0)
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["stage"] in out:
+                out[rec["stage"]] += rec["ms"]
+    return out
 
 
 def main() -> int:
     import torch
 
-    assert torch.cuda.is_available(), "chip_smoke.py needs a CUDA GPU"
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA GPU", file=sys.stderr)
+        return 1
     root = os.path.dirname(os.path.abspath(__file__))
+    trace_path = os.path.join(root, "flac_codec_tpu_torch", "build",
+                              "chip_smoke", "trace.jsonl")
+    # stage timings go to this file (read at the port's first import)
+    os.environ["FLAC_TPU_TRACE"] = trace_path
 
-    from flac_codec_tpu import native
-    from flac_codec_tpu.decode import Verified, verify
-    from flac_codec_tpu_torch import kernels
+    from flac_codec_tpu_torch import kernels, native
+    from flac_codec_tpu_torch.decode import Verified, verify
+
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    open(trace_path, "w").close()
 
     # ---- 1. device and environment ----
     smi = subprocess.run(
@@ -311,28 +500,30 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernels.library()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(kernels.library), ex.submit(native.load)]
+        for b in builds:
+            b.result()
+    print(f"kernel and native builds: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kernels.BUILD_INFO.get('seconds', 0.0):.2f} s, "
           f"cached={kernels.BUILD_INFO.get('cached')})")
     for line in kernels.BUILD_INFO.get("log", "").splitlines():
         if "Used" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip().split("ptxas info    : ")[-1])
-    if native.load() is None:
-        raise AssertionError("the native assembler did not load")
 
     pcm16 = music(SECONDS_16, 44100, 16, seed=16)
     pcm24 = music(SECONDS_24, 96000, 24, seed=24)
 
-    # ---- 2. kernels against their plain versions ----
+    # ---- 2. encode kernels against their plain versions ----
     results = check_kernels(dev, pcm16)
 
-    # ---- 3./4. the main path, counted ----
+    # ---- 3./4. the encode path, counted ----
     kernels.reset_launches()
-    penc = check_identical("16-bit 44.1 kHz 120 s", pcm16, 44100, 16, root,
-                           dev)
+    data16, penc = check_identical("16-bit 44.1 kHz 120 s", pcm16, 44100, 16,
+                                   root, dev)
     fallback = penc.fallback_frames
-    penc = check_identical("24-bit 96 kHz 20 s", pcm24, 96000, 24, root, dev)
+    data24, penc = check_identical("24-bit 96 kHz 20 s", pcm24, 96000, 24,
+                                   root, dev)
     fallback += penc.fallback_frames
     data32, penc = encode_port(pcm16, 44100, 16, "f32", dev)
     fallback += penc.fallback_frames
@@ -343,16 +534,42 @@ def main() -> int:
           f"compression ratio {ratio:.4f}")
     launches = dict(kernels.LAUNCHES)
 
-    # ---- 5. the main path went through both kernels ----
-    print(f"main-path launches: {launches}; fallback frames: {fallback}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    # ---- 5. the encode path went through its kernels ----
+    print(f"encode-path launches: {launches}; fallback frames: {fallback}")
     for r in results:
+        if launches[r["name"]] <= 0:
+            raise AssertionError(f"kernel {r['name']} was not launched on "
+                                 "the encode path")
         r["launches"] = launches[r["name"]]
 
-    # ---- 6. encode rate ----
+    # ---- 6. the decode kernel against its plain version ----
+    k3 = check_predict(dev, data16)
+    results.append(k3)
+
+    # ---- 7. the decode path, counted ----
+    streams = (("16-bit 44.1 kHz 120 s f64", data16, pcm16),
+               ("24-bit 96 kHz 20 s f64", data24, pcm24),
+               ("16-bit 44.1 kHz 120 s f32", data32, pcm16))
+    kernels.reset_launches()
+    for label, data, inter in streams:
+        pcm, dec = decode_port(data, dev)
+        if pcm.device.type != "cuda" or not np.array_equal(
+                pcm.cpu().numpy().reshape(-1), inter):
+            raise AssertionError(f"{label}: decoded PCM differs from the "
+                                 "input")
+        print(f"decode {label}: lossless on the card, {dec.device_frames} "
+              f"device frames, {dec.host_frames} host frames")
+    launches = dict(kernels.LAUNCHES)
+    print(f"decode-path launches: {launches}")
+    if launches["predict_lpc"] <= 0:
+        raise AssertionError("kernel predict_lpc was not launched on the "
+                             "decode path")
+    k3["launches"] = launches["predict_lpc"]
+
+    # ---- 8. the conformance corpus on the card ----
+    check_corpus(root, dev)
+
+    # ---- 9. encode and decode rate ----
     mb = len(pcm16) * 2 / 1e6
     for analysis in ("f64", "f32"):
         secs = []
@@ -364,9 +581,28 @@ def main() -> int:
         print(f"encode {analysis}: {mb / med:.2f} MB/s of PCM "
               f"(median of 3: {med:.3f} s for {mb:.2f} MB; runs "
               f"{', '.join(f'{s:.3f}' for s in secs)}) on {card}")
+    for label, data, inter, width in (
+            ("16-bit 120 s", data16, pcm16, 2),
+            ("24-bit 20 s", data24, pcm24, 3)):
+        mb = len(inter) * width / 1e6
+        runs = []
+        for _ in range(3):
+            open(trace_path, "w").close()
+            t = time.perf_counter()
+            decode_port(data, dev)
+            secs = time.perf_counter() - t
+            runs.append((secs, stage_ms(trace_path, ("decode.parse",
+                                                     "decode.reconstruct"))))
+        secs, stages = sorted(runs, key=lambda r: r[0])[1]
+        print(f"decode {label}: {mb / secs:.2f} MB/s of PCM (median of 3: "
+              f"{secs:.3f} s for {mb:.2f} MB; runs "
+              f"{', '.join(f'{r[0]:.3f}' for r in runs)}; in the median run "
+              f"decode.parse {stages['decode.parse']:.1f} ms, "
+              f"decode.reconstruct {stages['decode.reconstruct']:.1f} ms) "
+              f"on {card}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,22 @@
-"""flac_codec_tpu_torch — the batched FLAC encode path on PyTorch and CUDA.
+"""flac_codec_tpu_torch — the batched FLAC encode and decode paths on
+PyTorch and CUDA.
 
-A port of ``flac_codec_tpu``'s device plane (the JAX/Pallas planner and
-frame packer) to PyTorch, with the two Pallas kernels of the encode path
-rewritten as CUDA C++ for Hopper (``csrc/``).  The host plane (metadata,
-bit I/O, CRC, the native C++ assembler, the sequential reference encoder)
-is imported from ``flac_codec_tpu``, which has no JAX in it.
+A port of ``flac_codec_tpu``'s device plane (the JAX/Pallas planner,
+frame packer and decoder reconstruction) to PyTorch, with the Pallas
+kernels of those paths rewritten as CUDA C++ for Hopper (``csrc/``).
+
+The port stands alone: it imports neither ``jax`` nor any module of
+``flac_codec_tpu``.  It carries its own copy of the host plane
+(``encode``, ``decode``, ``metadata``, ``format``, ``models``, ``bitio``,
+``crc``, ``byteorder``, ``rice``, ``errors``, ``utils.wav``) and of the
+native C++ engine (``native/``), which it builds at first use and
+requires.  Only the tests hold the port against the JAX package.
 
 Layout mirrors the JAX package so a reader finds each counterpart:
-``ops/`` (planner and packers), ``parallel/batch.py`` (``BatchEncoder``),
-``cli/`` (``wav2flac``) and ``convert.py`` (plan trees between the two).
-This package never imports ``jax``.
+``ops/`` (planner, packers, inverse predictors), ``parallel/batch.py``
+(``BatchEncoder``), ``parallel/batch_decode.py`` (``BatchDecoder``),
+``cli/`` (``wav2flac``, ``flac2wav``) and ``convert.py`` (plan trees
+between the two).
 """
 
 __version__ = "0.1.0"

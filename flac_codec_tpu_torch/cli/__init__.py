@@ -1,7 +1,7 @@
 """CLI of the port: ``python -m flac_codec_tpu_torch.cli <tool> [args...]``.
 
-Only ``wav2flac`` is ported; the other tools of ``flac_codec_tpu.cli``
-run on the host and need no port.
+``wav2flac`` and ``flac2wav`` are ported; the other tools of the JAX
+package's ``cli`` run on the host and need no port.
 """
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 import importlib
 import sys
 
-TOOLS = {"wav2flac": "wav2flac"}
+TOOLS = {"wav2flac": "wav2flac", "flac2wav": "flac2wav"}
 
 
 def main(argv=None) -> int:

@@ -2,8 +2,8 @@
 
 The port's counterpart of ``python -m flac_codec_tpu.cli wav2flac --tpu``:
 it always encodes through ``flac_codec_tpu_torch.parallel.batch.
-BatchEncoder`` on ``--device`` (default ``cuda``).  Options come from the
-JAX package's ``build_options``, so presets and flags mean the same.
+BatchEncoder`` on ``--device`` (default ``cuda``).  ``build_options`` is a
+copy of the JAX package's, so presets and flags mean the same.
 
     python -m flac_codec_tpu_torch.cli wav2flac --best in.wav out.flac
 """
@@ -12,9 +12,19 @@ from __future__ import annotations
 
 import argparse
 
-from flac_codec_tpu import metadata as meta
-from flac_codec_tpu.cli.wav2flac import build_options
-from flac_codec_tpu.utils.wav import read_wave_data, read_wave_header
+from .. import metadata as meta
+from ..encode import Options
+from ..utils.wav import read_wave_data, read_wave_header
+
+
+def build_options(args) -> Options:
+    opts = Options.fast() if args.fast else (
+        Options.best() if args.best else Options())
+    if args.block_size:
+        opts = opts.with_block_size(args.block_size)
+    if args.no_padding:
+        opts = opts.no_padding()
+    return opts
 
 
 def main(argv=None) -> int:

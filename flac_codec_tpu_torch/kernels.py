@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, which is
-loaded with ``ctypes``.  The build lands in ``flac_codec_tpu_torch/build/
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into a shared library with a plain C interface, which is loaded
+with ``ctypes``.  The build lands in ``flac_codec_tpu_torch/build/
 <hash>/``, keyed by a hash of the sources and flags, so a checkout builds
 everything it needs from its own files and an edited source rebuilds.
 
@@ -28,7 +29,7 @@ BUILD = os.path.join(_HERE, "build")
 LIB_NAME = "libflac_torch_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # largest dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -37,7 +38,8 @@ _lock = threading.Lock()
 _lib = None
 
 # kernel launches, counted by each wrapper where it launches its kernel
-LAUNCHES = {"splice_subframes": 0, "pack_symbols": 0, "autocorr_levinson": 0}
+LAUNCHES = {"splice_subframes": 0, "pack_symbols": 0, "autocorr_levinson": 0,
+            "predict_lpc": 0}
 
 # what the last build did: seconds, library path, compiler output
 BUILD_INFO: dict = {}
@@ -78,17 +80,39 @@ def _build() -> str:
         BUILD_INFO.update(seconds=0.0, path=lib, cached=True, log="")
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one compiler per source, all at once; then one link
+    objs, procs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{pid}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log += " ".join(cmd) + "\n" + out
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode})")
+    tmp = f"{lib}.{pid}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode})")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        f.write(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log}")
     os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
     BUILD_INFO.update(seconds=secs, path=lib, cached=False, log=log)
     return lib
@@ -110,6 +134,9 @@ def library() -> ctypes.CDLL:
             lib.flac_autocorr_levinson.argtypes = [ptr, ptr, ptr, ptr, i32,
                                                    i32, i32, ptr]
             lib.flac_autocorr_levinson.restype = i32
+            lib.flac_predict_lpc.argtypes = [ptr, ptr, i32, ptr, ptr, ptr,
+                                             i32, i32, i32, ptr]
+            lib.flac_predict_lpc.restype = i32
             _lib = lib
         return _lib
 

@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from flac_codec_tpu.models.lpc import precision_for_block_size
-
+from ..models.lpc import precision_for_block_size
 from . import decorrelate, fixed, lpc, rice
 from .common import (BIG, TYPE_CONSTANT, TYPE_FIXED, TYPE_LPC,
                      TYPE_VERBATIM, analysis_dtype)

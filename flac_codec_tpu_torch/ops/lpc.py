@@ -26,11 +26,9 @@ import math
 import numpy as np
 import torch
 
-from flac_codec_tpu.models import lpc as host_lpc
-from flac_codec_tpu.models.lpc import (precision_for_block_size,
-                                       window as host_window)
-
 from .. import kernels
+from ..models import lpc as host_lpc
+from ..models.lpc import precision_for_block_size, window as host_window
 from .common import round_half_away
 
 MAX_ORDER = 32

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and encode path on the card.
+"""The port's CUDA kernels and its encode and decode paths on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
 without one.  Run them on a GPU machine with
@@ -15,12 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from flac_codec_tpu.encode import FlacSampleWriter, Options
 from flac_codec_tpu_torch import kernels
+from flac_codec_tpu_torch.decode import FlacSampleReader
+from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
 from flac_codec_tpu_torch.ops import lpc as tlpc
 from flac_codec_tpu_torch.ops import packpanel as tpp
 from flac_codec_tpu_torch.ops.common import u32_to_i32
+from flac_codec_tpu_torch.ops.predict import predict_batch_plain
+from flac_codec_tpu_torch.ops.predict_pallas import TAP_BUCKETS, predict_lpc
 from flac_codec_tpu_torch.parallel.batch import BatchEncoder
+from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +145,95 @@ def test_batch_encoder_f64_on_card_matches_host(dev, bps, rate):
         enc.finalize()
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
+
+
+def _lpc_rows(rng, orders, N, sample_bits=23):
+    """Bounded samples through a forward predictor scaled to a random
+    shift in 0-15, so residuals fit int32; order-0 rows pass through."""
+    R = len(orders)
+    y = rng.integers(-(1 << sample_bits), 1 << sample_bits, (R, N))
+    shift = rng.integers(0, 16, R)
+    lim = np.minimum(2 << shift, (1 << 14) - 1)[:, None]
+    q = rng.integers(-lim, lim + 1, (R, 32))
+    q[np.arange(32)[None, :] >= np.asarray(orders)[:, None]] = 0
+    acc = np.zeros((R, N), np.int64)
+    for j in range(min(32, N - 1)):
+        acc[:, j + 1:] += q[:, j:j + 1] * y[:, :N - 1 - j]
+    x = np.where(np.arange(N)[None, :] >= np.asarray(orders)[:, None],
+                 y - (acc >> shift[:, None]), y)
+    return [x.astype(np.int32), q.astype(np.int32), shift.astype(np.int32),
+            np.asarray(orders, np.int32)], y
+
+
+@pytest.mark.parametrize("taps", TAP_BUCKETS)
+@pytest.mark.parametrize("R,N", [(512, 4096), (37, 1000), (1, 17)])
+def test_predict_lpc_kernel_matches_plain(dev, taps, R, N):
+    """Every tap bucket, rows that do not fill a warp, lengths that do
+    not fill a chunk, order-0 rows and full-order rows."""
+    rng = np.random.default_rng(taps * R + N)
+    orders = rng.integers(0, taps + 1, R)
+    orders[0] = taps
+    if R > 1:
+        orders[1] = 0
+    arrays, y = _lpc_rows(rng, orders, N)
+    args = [torch.as_tensor(a, device=dev) for a in arrays]
+    n0 = kernels.LAUNCHES["predict_lpc"]
+    got = predict_lpc(*args, taps)
+    want = predict_batch_plain(*args, taps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["predict_lpc"] == n0 + 1
+    assert got.dtype == torch.int64 and got.shape == (R, N)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), y)
+
+
+def test_predict_lpc_kernel_shift_semantics(dev):
+    """Shifts outside [0, 63] shift in sign bits only; orders past N."""
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.integers(-(1 << 20), 1 << 20, (4, 64)),
+                        dtype=torch.int32, device=dev)
+    q = torch.zeros((4, 32), dtype=torch.int32, device=dev)
+    q[:, :2] = torch.tensor([[3, -1], [1, 1], [5, 0], [1, 0]])
+    shift = torch.tensor([64, -3, 70, 2], dtype=torch.int32, device=dev)
+    order = torch.tensor([2, 2, 1, 80], dtype=torch.int32, device=dev)
+    got = predict_lpc(x, q, shift, order, 4)
+    assert torch.equal(got, predict_batch_plain(x, q, shift, order, 4))
+
+
+def test_predict_lpc_refuses_mixed_devices(dev):
+    x = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    q = torch.zeros((2, 32), dtype=torch.int32)
+    s = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="different devices"):
+        predict_lpc(x, q, s, s, 4)
+
+
+@pytest.mark.parametrize("bps,channels,block,wasted,order", [
+    (16, 2, 4096, 0, 12), (24, 2, 1152, 0, 12), (16, 1, 4608, 0, 32),
+    (24, 8, 1024, 3, 12), (20, 6, 1024, 0, 8)])
+def test_batch_decoder_on_card_is_lossless(dev, bps, channels, block, wasted,
+                                           order):
+    """LPC streams through the kernel: stereo, mono at order 32, eight
+    channels with wasted bits, six channels."""
+    rng = np.random.default_rng(bps + channels)
+    n = block * 9 + 333
+    t = np.arange(n)
+    amp = 1 << (bps - 3 - wasted)
+    inter = (np.stack([amp * np.sin(t * (0.01 + 0.003 * c))
+                       + rng.integers(-99, 99, n) for c in range(channels)]
+                      ).T.reshape(-1).astype(np.int32) << wasted)
+    buf = io.BytesIO()
+    opts = Options.best().with_block_size(block).with_max_lpc_order(order)
+    enc = FlacSampleWriter(buf, opts, 48000, bps, channels, total_samples=n)
+    enc.write(inter)
+    enc.finalize()
+    n0 = kernels.LAUNCHES["predict_lpc"]
+    with BatchDecoder(io.BytesIO(buf.getvalue()), batch_frames=4,
+                      device=dev) as dec:
+        pcm = dec.read_all_device()
+        assert dec.device_frames == 9 and dec.host_frames == 1
+    assert pcm.device.type == "cuda" and pcm.dtype == torch.int32
+    assert kernels.LAUNCHES["predict_lpc"] > n0
+    assert np.array_equal(pcm.cpu().numpy().reshape(-1), inter)
+    with FlacSampleReader(io.BytesIO(buf.getvalue())) as r:
+        assert np.array_equal(r.read_to_end(), inter)
