@@ -26,9 +26,26 @@ non-zero without one, and outside a checkout).  Phases:
 8. every stream of ``tests/data/conformance/`` through
    ``BatchDecoder(device="cuda", batch_frames=4)``; its PCM must hash to
    the manifest's ``pcm_md5``;
-9. encode MB/s of PCM in f64 and f32, and decode MB/s of PCM with the
-   ``decode.parse`` and ``decode.reconstruct`` stage times (median of 3,
-   synchronised).
+9. the frame-body parser ``parse_frame_bodies`` (K4) against its plain
+   version, bit for bit and ``ok`` included: seeded small-block streams
+   and conformance streams in every construct (constant, verbatim, FIXED,
+   LPC to order 32, wasted bits, escaped and constant partitions, rice2,
+   8 channels, 24 bits, left/right/mid-side), damaged copies of them and
+   garbage bodies; then against the native raw parse on the first
+   256-frame batch of the 120 s and 24-bit streams; median times;
+10. the device-parse decode path: the three streams through
+   ``BatchDecoder(device="cuda", device_parse=True)``; the PCM must equal
+   the input, K4 and ``predict_lpc`` must have launched, and no batch may
+   fall back to the host parse but the one holding the short tail;
+11. the conformance corpus through the device-parse path (``pcm_md5``);
+12. a slot past one block's shared memory: 1 s of 8-channel 24-bit
+   96 kHz at block 16384 (a 420 KB K1 slot) encoded on the card, f64
+   byte-identical to ``FlacSampleWriter`` and decoded back losslessly
+   through both parse paths; and K2 against its plain version on
+   60,000-word panels;
+13. encode MB/s of PCM in f64 and f32, and decode MB/s of PCM with the
+   host parse and with the device parse, with their stage times (median
+   of 3, synchronised).
 
 Any failed check raises.  The last lines are a JSON summary of the
 kernels, the card's ``nvidia-smi`` name and power limit, and
@@ -420,32 +437,259 @@ def check_predict(dev, stream16: bytes):
             "library_ms": None}
 
 
-def decode_port(data: bytes, dev, batch_frames=BATCH_FRAMES):
+def parse_inputs(data: bytes, dev, frames=BATCH_FRAMES):
+    """The native scan of a stream's first ``frames`` frames as the
+    arguments of parse_frame_bodies on ``dev``, and the native raw parse
+    of the same frames."""
+    import torch
+
+    from flac_codec_tpu_torch import native
+    from flac_codec_tpu_torch.decode import Decoder
+
+    dec = Decoder(io.BytesIO(data))
+    si = dec.streaminfo
+    view = dec.r.np_view()
+    nat = native.load()
+    args = (view, dec.r.pos, frames, si.sample_rate, si.channels,
+            si.bits_per_sample, si.maximum_block_size, dec.total_samples)
+    scan, raw = nat.scan_frames(*args), nat.parse_frames_raw(*args)
+    if scan["n"] == 0 or scan["n"] != raw["n"]:
+        raise AssertionError(f"native scan found {scan['n']} frames, the "
+                             f"raw parse {raw['n']}")
+    t = [torch.as_tensor(view.copy()),
+         torch.as_tensor(scan["body_off"].astype(np.int64)),
+         torch.as_tensor(scan["body_bytes"].astype(np.int32) * 8),
+         torch.as_tensor(scan["assignment"].astype(np.int32))]
+    return ([x.to(dev) for x in t] + [si.maximum_block_size, si.channels,
+                                      si.bits_per_sample], raw)
+
+
+def k4_vs_plain(label, args) -> dict:
+    """K4 and its plain version on the same inputs: every output equal."""
+    import torch
+
+    from flac_codec_tpu_torch.ops.framescan import (
+        parse_frame_bodies, parse_frame_bodies_plain)
+
+    got = parse_frame_bodies(*args)
+    want = parse_frame_bodies_plain(*args)
+    torch.cuda.synchronize()
+    for key, w in want.items():
+        if got[key].dtype != w.dtype or not torch.equal(got[key], w):
+            err = int((got[key].long() - w.long()).abs().max())
+            raise AssertionError(f"parse_frame_bodies ({label}) disagrees "
+                                 f"with its plain version on {key}: "
+                                 f"max_abs_err={err}")
+    return got
+
+
+def small_streams():
+    """Seeded small-block streams through the port's host encoder: (label,
+    bytes).  Between them: LPC to order 32, FIXED, constant and verbatim
+    subframes, the stereo decorrelations, wasted bits, rice2, 8 channels,
+    24 bits."""
+    from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+
+    rng = np.random.default_rng(9)
+    out = []
+    for label, bps, ch, block, opts, shift in (
+            ("16-bit stereo, block 256", 16, 2, 256, Options.best(), 0),
+            ("24-bit stereo, block 576", 24, 2, 576, Options.best(), 0),
+            ("20-bit 8 ch, wasted 2, block 192", 20, 8, 192,
+             Options.best(), 2),
+            ("16-bit mono FIXED, block 1152", 16, 1, 1152, Options.fast(),
+             0),
+            ("16-bit stereo, order 32, block 512", 16, 2, 512,
+             Options.best().with_max_lpc_order(32), 0)):
+        n = block * 12
+        t = np.arange(n)
+        amp = 1 << (bps - 3 - shift)
+        x = np.stack([amp * np.sin(t * (0.01 + 0.004 * c))
+                      * (np.arange(n) // block % 4 != 1)   # silent frames
+                      + rng.integers(-99, 99, n) * (c % 3 != 2)
+                      for c in range(ch)]).T
+        full = 1 << (bps - 1 - shift)
+        x[(np.arange(n) // block) % 4 == 3] = rng.integers(
+            -full, full, (n // 4, ch))                     # verbatim frames
+        if ch == 2:
+            x[(np.arange(n) // block) % 6 == 5, 1] = x[
+                (np.arange(n) // block) % 6 == 5, 0]       # equal channels
+        inter = (x.reshape(-1).astype(np.int32) << shift)
+        buf = io.BytesIO()
+        enc = FlacSampleWriter(buf, opts.with_block_size(block), 48000, bps,
+                               ch, total_samples=n)
+        enc.write(inter)
+        enc.finalize()
+        out.append((label, buf.getvalue()))
+    return out
+
+
+def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
+    """Phase 9: K4 against its plain version, then against the native raw
+    parse at full width; median times."""
+    import torch
+
+    from flac_codec_tpu_torch.ops.framescan import (
+        parse_frame_bodies, parse_frame_bodies_plain)
+
+    t0 = time.perf_counter()
+    corpus = os.path.join(root, "tests", "data", "conformance")
+    sets = small_streams() + [
+        (name, open(os.path.join(corpus, name + ".flac"), "rb").read())
+        for name in ("constant-subframes", "partition-escape",
+                     "partition-constant", "mixed-subframe-types",
+                     "decorrelate-left-side", "decorrelate-side-right",
+                     "decorrelate-mid-side", "wasted-side-channel",
+                     "eight-channels", "lpc-order-32", "rice2-24bit")]
+    rng = np.random.default_rng(10)
+    lanes, not_ok = 0, 0
+    for label, data in sets:
+        args, _ = parse_inputs(data, dev)
+        got = k4_vs_plain(label, args)
+        if not bool(got["ok"].all()):
+            raise AssertionError(f"parse_frame_bodies ({label}): a body of a "
+                                 "valid stream is not ok")
+        # damaged copies: flipped bits in the bodies, one cut body
+        d = args[0].clone()
+        flips = torch.as_tensor(rng.integers(0, d.shape[0], 24), device=dev)
+        d[flips] ^= torch.as_tensor(1 << rng.integers(0, 8, 24),
+                                    dtype=torch.uint8, device=dev)
+        nbits = args[2].clone()
+        nbits[0] -= 1
+        bad = k4_vs_plain(label + " damaged", [d, args[1], nbits, *args[3:]])
+        lanes += 2 * got["ok"].shape[0]
+        not_ok += int((~bad["ok"]).sum())
+    L, B = 20000, 256
+    garbage = [torch.as_tensor(rng.integers(0, 256, L), dtype=torch.uint8),
+               torch.as_tensor(rng.integers(-8, L, B), dtype=torch.int64),
+               torch.as_tensor(rng.integers(-8, 8000, B), dtype=torch.int32),
+               torch.as_tensor(rng.integers(0, 11, B), dtype=torch.int32)]
+    bad = k4_vs_plain("garbage", [x.to(dev) for x in garbage] + [64, 2, 16])
+    not_ok += int((~bad["ok"]).sum())
+    print(f"K4 parse_frame_bodies: {len(sets)} streams, their damaged copies "
+          f"and {B} garbage bodies bit-exact with the plain version, ok "
+          f"included ({lanes + B} bodies, {not_ok} not ok) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    full = {}
+    for label, data in (("120 s 16-bit", data16), ("20 s 24-bit", data24)):
+        args, raw = full[label] = parse_inputs(data, dev)
+        got = parse_frame_bodies(*args)
+        same = bool(got["ok"].all()) and all(
+            np.array_equal(got[k].cpu().numpy(), raw[k].astype(np.int32))
+            for k in ("buf", "order", "shift", "wasted", "qcoeffs"))
+        if not same:
+            raise AssertionError(f"parse_frame_bodies ({label}) disagrees "
+                                 "with the native raw parse")
+        print(f"K4 parse_frame_bodies {label}: first {raw['n']} frames equal "
+              "to the native raw parse, array for array")
+    args, raw = full["120 s 16-bit"]
+    got = k4_vs_plain("120 s 16-bit", args)
+    ms = cuda_ms(lambda: parse_frame_bodies(*args))
+    plain_ms = cuda_ms(lambda: parse_frame_bodies_plain(*args), reps=1)
+    B, C, N = got["buf"].shape
+    # body bytes (and offsets, lengths, assignments) read once; samples,
+    # parameters and ok written once; ~10 operations per decoded symbol
+    # (each sample, warm-up and LPC coefficient)
+    body = int(args[2].sum()) // 8
+    b4 = bound(body + B * 16 + B * C * N * 4 + B * C * 35 * 4 + B,
+               10 * (B * C * N + int(raw["order"].astype(np.int64).sum())))
+    print(f"K4 parse_frame_bodies: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}) (median; "
+          f"B={B} C={C} N={N}, {body} body bytes)")
+    return {"name": "parse_frame_bodies", "route": "cuda",
+            "source": "flac_codec_tpu_torch/csrc/parse_frames.cu",
+            "replaces": "flac_codec_tpu/ops/framescan.py:117",
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b4,
+            "library_ms": None}
+
+
+def check_slot_repair(dev) -> None:
+    """Phase 12: a K1 slot past one block's shared memory, end to end, and
+    K2 past it against its plain version."""
+    import torch
+
+    from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+    from flac_codec_tpu_torch.ops import framepack, packpanel
+    from flac_codec_tpu_torch.parallel.batch import BatchEncoder
+
+    rate, bps, ch, block = 96000, 24, 8, 16384
+    rng = np.random.default_rng(12)
+    t = np.arange(rate)
+    inter = np.stack([(1 << 20) * np.sin(t * (0.01 + 0.003 * c))
+                      + rng.integers(-999, 1000, rate) for c in range(ch)]
+                     ).T.reshape(-1).astype(np.int32)
+    opts = Options.best().with_block_size(block)
+    W = framepack.frame_slot_words(ch, block, bps + 2)
+    streams = []
+    for cls, kw in ((FlacSampleWriter, {}),
+                    (BatchEncoder, dict(batch_frames=BATCH_FRAMES,
+                                        analysis="f64", device=dev))):
+        buf = io.BytesIO()
+        enc = cls(buf, opts, rate, bps, ch, total_samples=rate, **kw)
+        enc.write(inter)
+        enc.finalize()
+        streams.append(buf.getvalue())
+    if streams[0] != streams[1]:
+        raise AssertionError("8-channel 24-bit block-16384 stream differs "
+                             "from the host encoder's")
+    for device_parse in (False, True):
+        pcm, dec = decode_port(streams[1], dev, device_parse=device_parse)
+        if not np.array_equal(pcm.cpu().numpy().reshape(-1), inter):
+            raise AssertionError("8-channel 24-bit block-16384 stream does "
+                                 f"not decode losslessly (device_parse="
+                                 f"{device_parse})")
+    print(f"slot past shared memory: 8 ch 24-bit block {block}, K1 slot "
+          f"{W} words ({W * 4} bytes), f64 byte-identical to "
+          f"FlacSampleWriter ({len(streams[1])} bytes, "
+          f"{enc.device_frames} device frames), lossless through both "
+          "parse paths")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows, M, P = 4, 380000, 60000
+    widths = torch.randint(1, 10, (rows, M), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ends = (torch.cumsum(widths, 1) + 7).to(torch.int32)
+    values = (torch.randint(0, 1 << 9, (rows, M), generator=gen, device=dev)
+              & ((1 << widths.long()) - 1)).to(torch.int32)
+    mask = torch.rand((rows, M), generator=gen, device=dev) > 0.05
+    got, ovf = packpanel.pack_symbols(values, widths, ends, mask, P)
+    want, wovf = packpanel.pack_symbols_plain(values, widths, ends, mask, P)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(ovf, wovf)):
+        raise AssertionError("pack_symbols past shared memory disagrees "
+                             "with its plain version")
+    print(f"K2 pack_symbols past shared memory: rows={rows} M={M} P={P} "
+          f"({P * 4} bytes) bit-exact, {int(ovf.sum())} overflow rows")
+
+
+def decode_port(data: bytes, dev, batch_frames=BATCH_FRAMES,
+                device_parse=False):
     import torch
 
     from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 
     with BatchDecoder(io.BytesIO(data), batch_frames=batch_frames,
-                      device=dev) as dec:
+                      device=dev, device_parse=device_parse) as dec:
         pcm = dec.read_all_device()
         torch.cuda.synchronize()
     return pcm, dec
 
 
-def check_corpus(root, dev):
-    """Phase 8: every conformance stream decodes on the card to its
-    manifest's pcm_md5."""
+def check_corpus(root, dev, device_parse=False):
+    """Phases 8 and 11: every conformance stream decodes on the card to
+    its manifest's pcm_md5."""
     from flac_codec_tpu_torch import kernels
 
     corpus = os.path.join(root, "tests", "data", "conformance")
     with open(os.path.join(corpus, "manifest.json")) as f:
         manifest = json.load(f)
-    n0 = kernels.LAUNCHES["predict_lpc"]
+    n0 = dict(kernels.LAUNCHES)
     frames = [0, 0]
     for name in sorted(manifest):
         with open(os.path.join(corpus, name), "rb") as f:
             data = f.read()
-        pcm, dec = decode_port(data, dev, batch_frames=4)
+        pcm, dec = decode_port(data, dev, batch_frames=4,
+                               device_parse=device_parse)
         flat = pcm.cpu().numpy().reshape(-1).astype("<i8")
         rec = manifest[name]
         if (pcm.device.type != "cuda" or len(flat) != rec["total_samples"]
@@ -455,9 +699,11 @@ def check_corpus(root, dev):
                                  "card does not match its pcm_md5")
         frames[0] += dec.device_frames
         frames[1] += dec.host_frames
-    print(f"conformance corpus: {len(manifest)} streams match pcm_md5 on the "
-          f"card; {frames[0]} device frames, {frames[1]} host frames, "
-          f"{kernels.LAUNCHES['predict_lpc'] - n0} predict_lpc launches")
+    launched = {k: kernels.LAUNCHES[k] - n0[k]
+                for k in ("predict_lpc", "parse_frame_bodies")}
+    print(f"conformance corpus (device_parse={device_parse}): "
+          f"{len(manifest)} streams match pcm_md5 on the card; {frames[0]} "
+          f"device frames, {frames[1]} host frames, launches {launched}")
 
 
 def stage_ms(path: str, names) -> dict:
@@ -569,7 +815,41 @@ def main() -> int:
     # ---- 8. the conformance corpus on the card ----
     check_corpus(root, dev)
 
-    # ---- 9. encode and decode rate ----
+    # ---- 9. the frame-body parser against its plain version ----
+    k4 = check_parse(dev, root, data16, data24)
+    results.append(k4)
+
+    # ---- 10. the device-parse decode path, counted ----
+    kernels.reset_launches()
+    for label, data, inter in streams:
+        pcm, dec = decode_port(data, dev, device_parse=True)
+        if pcm.device.type != "cuda" or not np.array_equal(
+                pcm.cpu().numpy().reshape(-1), inter):
+            raise AssertionError(f"{label}: device-parse decode differs from "
+                                 "the input")
+        if dec.parse_fallbacks != 1 or dec.host_frames != 1:
+            raise AssertionError(f"{label}: {dec.parse_fallbacks} batches "
+                                 "fell back to the host parse, "
+                                 f"{dec.host_frames} host frames (want the "
+                                 "short tail's only)")
+        print(f"decode {label} (device parse): lossless on the card, "
+              f"{dec.device_frames} device frames, {dec.host_frames} host "
+              f"frame, {dec.parse_fallbacks} fallback batch (the tail)")
+    launches = dict(kernels.LAUNCHES)
+    print(f"device-parse decode-path launches: {launches}")
+    for name in ("parse_frame_bodies", "predict_lpc"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "device-parse decode path")
+    k4["launches"] = launches["parse_frame_bodies"]
+
+    # ---- 11. the conformance corpus through the device parse ----
+    check_corpus(root, dev, device_parse=True)
+
+    # ---- 12. a slot past one block's shared memory ----
+    check_slot_repair(dev)
+
+    # ---- 13. encode and decode rate ----
     mb = len(pcm16) * 2 / 1e6
     for analysis in ("f64", "f32"):
         secs = []
@@ -581,25 +861,30 @@ def main() -> int:
         print(f"encode {analysis}: {mb / med:.2f} MB/s of PCM "
               f"(median of 3: {med:.3f} s for {mb:.2f} MB; runs "
               f"{', '.join(f'{s:.3f}' for s in secs)}) on {card}")
+    stage_names = {False: ("decode.parse", "decode.reconstruct"),
+                   True: ("decode.scan", "decode.upload",
+                          "decode.parse_device", "decode.reconstruct")}
     for label, data, inter, width in (
             ("16-bit 120 s", data16, pcm16, 2),
             ("24-bit 20 s", data24, pcm24, 3)):
         mb = len(inter) * width / 1e6
-        runs = []
-        for _ in range(3):
-            open(trace_path, "w").close()
-            t = time.perf_counter()
-            decode_port(data, dev)
-            secs = time.perf_counter() - t
-            runs.append((secs, stage_ms(trace_path, ("decode.parse",
-                                                     "decode.reconstruct"))))
-        secs, stages = sorted(runs, key=lambda r: r[0])[1]
-        print(f"decode {label}: {mb / secs:.2f} MB/s of PCM (median of 3: "
-              f"{secs:.3f} s for {mb:.2f} MB; runs "
-              f"{', '.join(f'{r[0]:.3f}' for r in runs)}; in the median run "
-              f"decode.parse {stages['decode.parse']:.1f} ms, "
-              f"decode.reconstruct {stages['decode.reconstruct']:.1f} ms) "
-              f"on {card}")
+        for device_parse in (False, True):
+            runs = []
+            for _ in range(3):
+                open(trace_path, "w").close()
+                t = time.perf_counter()
+                decode_port(data, dev, device_parse=device_parse)
+                secs = time.perf_counter() - t
+                runs.append((secs, stage_ms(trace_path,
+                                            stage_names[device_parse])))
+            secs, stages = sorted(runs, key=lambda r: r[0])[1]
+            parse = "device" if device_parse else "host"
+            print(f"decode {label} ({parse} parse): {mb / secs:.2f} MB/s of "
+                  f"PCM (median of 3: {secs:.3f} s for {mb:.2f} MB; runs "
+                  f"{', '.join(f'{r[0]:.3f}' for r in runs)}; in the median "
+                  "run " + ", ".join(f"{k} {v:.1f} ms"
+                                     for k, v in stages.items())
+                  + f") on {card}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

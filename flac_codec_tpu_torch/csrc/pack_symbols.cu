@@ -22,6 +22,11 @@
 // only when a live symbol would land outside the panel (or is wider than
 // 32 bits); that symbol is dropped and the row's flag set.  Shift amounts
 // stay in 0..31.
+//
+// A panel larger than one block's shared memory (227 KB, P > 58112 words:
+// 32-bit samples at blocks past ~54k) takes the same body with the panel
+// in global memory: the entry point zeroes the output and the threads
+// atomicOr straight into it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,7 +34,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+// largest dynamic shared memory one block may use on Hopper (227 KB)
+constexpr size_t kMaxSharedBytes = 232448;
 
+// kShared: the panel lives in shared memory; else it is the zeroed output
+template <bool kShared>
 __global__ void pack_symbols_kernel(const uint32_t* __restrict__ values,
                                     const int32_t* __restrict__ widths,
                                     const int32_t* __restrict__ ends,
@@ -37,10 +46,13 @@ __global__ void pack_symbols_kernel(const uint32_t* __restrict__ values,
                                     uint32_t* __restrict__ out,
                                     int32_t* __restrict__ overflow, int M,
                                     int P) {
-  extern __shared__ uint32_t panel[];
+  extern __shared__ uint32_t smem[];
   __shared__ int row_ovf;
   const int r = blockIdx.x;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) panel[i] = 0u;
+  uint32_t* o = out + static_cast<size_t>(r) * P;
+  uint32_t* panel = kShared ? smem : o;
+  if (kShared)
+    for (int i = threadIdx.x; i < P; i += blockDim.x) panel[i] = 0u;
   if (threadIdx.x == 0) row_ovf = 0;
   __syncthreads();
 
@@ -71,8 +83,8 @@ __global__ void pack_symbols_kernel(const uint32_t* __restrict__ values,
   }
   __syncthreads();
 
-  uint32_t* o = out + static_cast<size_t>(r) * P;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) o[i] = panel[i];
+  if (kShared)
+    for (int i = threadIdx.x; i < P; i += blockDim.x) o[i] = panel[i];
   if (threadIdx.x == 0) overflow[r] = row_ovf;
 }
 
@@ -85,18 +97,28 @@ extern "C" int flac_pack_symbols(const void* values, const void* widths,
                                  const void* ends, const void* mask,
                                  void* out, void* overflow, int rows, int M,
                                  int P, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* v = static_cast<const uint32_t*>(values);
+  const auto* w = static_cast<const int32_t*>(widths);
+  const auto* e = static_cast<const int32_t*>(ends);
+  const auto* m = static_cast<const uint8_t*>(mask);
+  auto* o = static_cast<uint32_t*>(out);
+  auto* ovf = static_cast<int32_t*>(overflow);
   const size_t smem = static_cast<size_t>(P) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pack_symbols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (smem > kMaxSharedBytes) {
+    cudaError_t err = cudaMemsetAsync(o, 0, smem * rows, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pack_symbols_kernel<false><<<rows, kThreads, 0, st>>>(v, w, e, m, o, ovf,
+                                                          M, P);
+    return static_cast<int>(cudaGetLastError());
   }
-  pack_symbols_kernel<<<rows, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(values),
-      static_cast<const int32_t*>(widths), static_cast<const int32_t*>(ends),
-      static_cast<const uint8_t*>(mask), static_cast<uint32_t*>(out),
-      static_cast<int32_t*>(overflow), M, P);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pack_symbols_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  pack_symbols_kernel<true><<<rows, kThreads, smem, st>>>(v, w, e, m, o, ovf,
+                                                         M, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,16 @@
 // Design: one block per frame, its (W,) slot in dynamic shared memory
 // (21 KB at preset -8, 29 KB at 24 bits).  Threads walk each panel's words
 // in order, so the reads of p[i] and p[i-1] are coalesced, OR their
-// shifted words into shared memory with atomicOr (neighbouring panels
-// share one boundary word), and the block stores the finished slot with
-// one coalesced pass.  No global atomics, no second pass.  Every write is
-// bounds-checked against the slot, so junk offsets of fallback frames
-// cannot leave their row.  Shift amounts stay in 1..31: sh == 0 takes its
-// own branch.
+// shifted words into the slot with atomicOr (neighbouring panels share one
+// boundary word), and the block stores the finished slot with one
+// coalesced pass.  Every write is bounds-checked against the slot, so junk
+// offsets of fallback frames cannot leave their row.  Shift amounts stay
+// in 1..31: sh == 0 takes its own branch.
+//
+// A slot larger than one block's shared memory (227 KB: 8 channels at
+// block 16384 and 24 bits) takes the same body with the slot in global
+// memory: the entry point zeroes the output and the threads atomicOr
+// straight into it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,15 +31,23 @@
 namespace {
 
 constexpr int kThreads = 256;
+// largest dynamic shared memory one block may use on Hopper (227 KB)
+constexpr size_t kMaxSharedBytes = 232448;
 
+// kShared: the slot lives in shared memory; else it is the zeroed output
+template <bool kShared>
 __global__ void splice_kernel(const uint32_t* __restrict__ panels,
                               const int32_t* __restrict__ bit_offs,
                               uint32_t* __restrict__ out, int S, int P,
                               int W) {
-  extern __shared__ uint32_t slot[];
+  extern __shared__ uint32_t smem[];
   const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) slot[i] = 0u;
-  __syncthreads();
+  uint32_t* o = out + static_cast<size_t>(b) * W;
+  uint32_t* slot = kShared ? smem : o;
+  if (kShared) {
+    for (int i = threadIdx.x; i < W; i += blockDim.x) slot[i] = 0u;
+    __syncthreads();
+  }
 
   for (int s = 0; s < S; ++s) {
     const uint32_t* p = panels + (static_cast<size_t>(b) * S + s) * P;
@@ -56,10 +68,10 @@ __global__ void splice_kernel(const uint32_t* __restrict__ panels,
       if (v != 0u && dst >= 0 && dst < W) atomicOr(&slot[dst], v);
     }
   }
-  __syncthreads();
-
-  uint32_t* o = out + static_cast<size_t>(b) * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) o[i] = slot[i];
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < W; i += blockDim.x) o[i] = slot[i];
+  }
 }
 
 }  // namespace
@@ -69,16 +81,23 @@ __global__ void splice_kernel(const uint32_t* __restrict__ panels,
 extern "C" int flac_splice_subframes(const void* panels, const void* bit_offs,
                                      void* out, int B, int S, int P, int W,
                                      void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const uint32_t*>(panels);
+  const auto* offs = static_cast<const int32_t*>(bit_offs);
+  auto* o = static_cast<uint32_t*>(out);
   const size_t smem = static_cast<size_t>(W) * sizeof(uint32_t);
+  if (smem > kMaxSharedBytes) {
+    cudaError_t e = cudaMemsetAsync(o, 0, smem * B, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    splice_kernel<false><<<B, kThreads, 0, st>>>(p, offs, o, S, P, W);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        splice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        splice_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  splice_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(panels),
-      static_cast<const int32_t*>(bit_offs), static_cast<uint32_t*>(out), S,
-      P, W);
+  splice_kernel<true><<<B, kThreads, smem, st>>>(p, offs, o, S, P, W);
   return static_cast<int>(cudaGetLastError());
 }

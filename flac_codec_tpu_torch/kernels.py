@@ -31,15 +31,12 @@ LIB_NAME = "libflac_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# largest dynamic shared memory one block may use on Hopper (227 KB)
-MAX_SHARED_BYTES = 232448
-
 _lock = threading.Lock()
 _lib = None
 
 # kernel launches, counted by each wrapper where it launches its kernel
 LAUNCHES = {"splice_subframes": 0, "pack_symbols": 0, "autocorr_levinson": 0,
-            "predict_lpc": 0}
+            "predict_lpc": 0, "parse_frame_bodies": 0}
 
 # what the last build did: seconds, library path, compiler output
 BUILD_INFO: dict = {}
@@ -137,6 +134,11 @@ def library() -> ctypes.CDLL:
             lib.flac_predict_lpc.argtypes = [ptr, ptr, i32, ptr, ptr, ptr,
                                              i32, i32, i32, ptr]
             lib.flac_predict_lpc.restype = i32
+            lib.flac_parse_frames.argtypes = [ptr, ctypes.c_longlong, ptr,
+                                              ptr, ptr, i32, i32, i32, i32,
+                                              ptr, ptr, ptr, ptr, ptr, ptr,
+                                              ptr]
+            lib.flac_parse_frames.restype = i32
             _lib = lib
         return _lib
 

@@ -1,2 +1,4 @@
-"""Device plane of the port: the batched encode planner and frame packer
-on PyTorch tensors, with the CUDA kernels behind ``packpanel``."""
+"""Device plane of the port: the batched encode planner and frame packer,
+the decoder's inverse predictors and its frame-body parser on PyTorch
+tensors, with the CUDA kernels behind ``packpanel``, ``lpc``,
+``predict_pallas`` and ``framescan``."""

@@ -64,10 +64,6 @@ def pack_symbols(values: torch.Tensor, widths: torch.Tensor,
         raise ValueError(f"pack_symbols: P must be positive, not {P}")
     if dev.type == "cpu":
         return pack_symbols_plain(values, widths, ends, mask, P)
-    if P * 4 > kernels.MAX_SHARED_BYTES:
-        raise ValueError(f"pack_symbols: a {P}-word panel exceeds the "
-                         f"{kernels.MAX_SHARED_BYTES}-byte shared memory "
-                         "of one block")
     rows, M = values.shape
     out = torch.empty((rows, P), dtype=torch.int32, device=dev)
     ovf = torch.empty(rows, dtype=torch.int32, device=dev)
@@ -136,10 +132,6 @@ def splice_subframes(panels: torch.Tensor, bit_offs: torch.Tensor,
         raise ValueError(f"splice_subframes: W must be positive, not {W}")
     if dev.type == "cpu":
         return splice_subframes_plain(panels, bit_offs, W)
-    if W * 4 > kernels.MAX_SHARED_BYTES:
-        raise ValueError(f"splice_subframes: a {W}-word slot exceeds the "
-                         f"{kernels.MAX_SHARED_BYTES}-byte shared memory "
-                         "of one block")
     B, S, P = panels.shape
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     if B:

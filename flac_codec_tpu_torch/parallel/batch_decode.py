@@ -19,9 +19,16 @@ Frames the host decodes itself (a short tail, the frame where the native
 parser stops, variable-block-size streams) are counted in
 ``host_frames``; frames reconstructed on the device in ``device_frames``.
 
-Not ported: ``mesh`` sharding, the opt-in device frame parser
-(``device_parse``) and the ``FLAC_TPU_PALLAS`` / ``FLAC_TPU_NO_PALLAS`` /
-``FLAC_TPU_DEVICE_PARSE`` switches.
+``device_parse=True`` (off by default, as in the JAX package) moves the
+Rice parse to the device for fixed-block-size streams of at most 24 bits:
+the native ``scan_frames`` only finds the frame bodies and checks their
+CRCs, one copy uploads the batch's bytes, and ``parse_frame_bodies`` (K4)
+parses them.  A batch the scan cannot start or the parser does not take
+whole goes to the host parse, which raises the precise error or decodes
+it; ``parse_fallbacks`` counts such batches.
+
+Not ported: ``mesh`` sharding and the ``FLAC_TPU_PALLAS`` /
+``FLAC_TPU_NO_PALLAS`` / ``FLAC_TPU_DEVICE_PARSE`` switches.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from .. import metadata as meta
 from .. import native
 from ..decode import Decoder
+from ..ops.framescan import parse_frame_bodies, parse_gate
 from ..ops.predict import fixed_compatible_mask, predict_fixed_batch
 from ..ops.predict_pallas import predict_lpc, tap_bucket
 from ..utils import trace
@@ -84,10 +92,12 @@ class BatchDecoder:
     ``device="cuda"`` without CUDA raises, and so does a native engine
     that does not build.  ``device="cpu"`` runs the same pipeline with the
     kernels' plain versions.  Decoded batches are int32 tensors on
-    ``device``.
+    ``device``.  ``device_parse`` parses the frame bodies on the device
+    (module docstring).
     """
 
-    def __init__(self, fp_or_path, batch_frames: int = 256, device="cuda"):
+    def __init__(self, fp_or_path, batch_frames: int = 256, device="cuda",
+                 device_parse: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -110,9 +120,17 @@ class BatchDecoder:
         self.block_size = si.maximum_block_size
         self._fixed_blocks = (si.minimum_block_size == si.maximum_block_size
                               and si.maximum_block_size > 0)
-        # frames reconstructed on the device, and frames the host decoded
+        self._device_parse = (device_parse and self._fixed_blocks
+                              and si.bits_per_sample <= 24)
+        # the pinned upload buffer of the device parse, and the event of
+        # its last copy
+        self._staging = None
+        self._staged = None
+        # frames reconstructed on the device, frames the host decoded, and
+        # batches the device parse handed to the host parse
         self.device_frames = 0
         self.host_frames = 0
+        self.parse_fallbacks = 0
         self._profiler = trace.profiler_session("batch-decode")
         self._profiler.__enter__()
 
@@ -185,6 +203,82 @@ class BatchDecoder:
         self.host_frames += B
         return torch.from_numpy(pcm).to(self.device), sizes
 
+    def _upload(self, view: np.ndarray, scan: dict):
+        """One host-to-device copy of the batch: body offsets (int64), bit
+        lengths and assignments (int32), then the bytes from the first
+        body to the end of the last, staged in pinned memory on CUDA.
+        Returns the four tensors on the device."""
+        B = scan["n"]
+        off = scan["body_off"].astype(np.int64)
+        lo, hi = int(off[0]), int(off[-1]) + int(scan["body_bytes"][-1])
+        head = 16 * B                         # 8 + 4 + 4 bytes a frame
+        nbytes = head + hi - lo
+        if self.device.type == "cuda":
+            if self._staged is not None:
+                self._staged.synchronize()    # the last copy has left it
+            if self._staging is None or len(self._staging) < nbytes:
+                self._staging = torch.empty(max(nbytes, 1 << 20),
+                                            dtype=torch.uint8,
+                                            pin_memory=True)
+            host = self._staging[:nbytes]
+        else:
+            host = torch.empty(nbytes, dtype=torch.uint8)
+        h = host.numpy()
+        h[:8 * B].view(np.int64)[:] = off - lo
+        h[8 * B:12 * B].view(np.int32)[:] = scan["body_bytes"] * 8
+        h[12 * B:head].view(np.int32)[:] = scan["assignment"]
+        h[head:] = view[lo:hi]
+        dev = host.to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            self._staged = torch.cuda.Event()
+            self._staged.record()
+        return (dev[head:], dev[:8 * B].view(torch.int64),
+                dev[8 * B:12 * B].view(torch.int32),
+                dev[12 * B:head].view(torch.int32))
+
+    def _read_batch_device_parse(self):
+        """The device-parse step: the native scan finds the batch's frame
+        bodies and checks their CRCs, one copy uploads them, the device
+        parses them and reconstructs the PCM.  Returns (pcm, blocks), None
+        at end of stream, or "fallback" with the reader's position
+        untouched when the scan finds no frame (a short tail, a damaged
+        frame) or a body does not parse."""
+        dec = self.decoder
+        si = dec.streaminfo
+        remaining = self._remaining()
+        if remaining is not None and remaining <= 0:
+            return None
+        view = dec.r.np_view()
+        with trace.stage("decode.scan", frames=self.batch_frames):
+            scan = self._nat.scan_frames(
+                view, dec.r.pos, self.batch_frames, si.sample_rate,
+                si.channels, si.bits_per_sample, self.block_size, remaining)
+        B = scan["n"]
+        if B == 0:
+            return "fallback"
+        with trace.stage("decode.upload", frames=B):
+            data, off, nbits, assign = self._upload(view, scan)
+        with trace.stage("decode.parse_device", frames=B):
+            parsed = parse_frame_bodies(data, off, nbits, assign,
+                                        self.block_size, si.channels,
+                                        si.bits_per_sample)
+            all_ok, order_max, fixed = parse_gate(
+                parsed, torch.ones(B, dtype=torch.bool,
+                                   device=self.device)).tolist()
+        if not all_ok:
+            return "fallback"
+        dec.r.pos = scan["end_bitpos"]
+        dec.current_sample += int(scan["blocks"].sum())
+        mode = "fixed" if fixed else "lpc"
+        taps = 32 if fixed else tap_bucket(order_max)
+        with trace.stage("decode.reconstruct", frames=B, mode=mode):
+            pcm = _device_reconstruct(
+                parsed["buf"], parsed["qcoeffs"], parsed["shift"],
+                parsed["order"], parsed["wasted"], assign, mode=mode,
+                taps=taps)
+        self.device_frames += B
+        return pcm, scan["blocks"]
+
     def read_batch_device(self):
         """Decode up to batch_frames frames; returns a (B, channels,
         block_size) int32 tensor on the device and the per-frame sample
@@ -192,6 +286,11 @@ class BatchDecoder:
         native parser stops at, go to the host decoder."""
         if not self._fixed_blocks:
             return self._read_batch_bulk_host()
+        if self._device_parse:
+            got = self._read_batch_device_parse()
+            if not isinstance(got, str):
+                return got
+            self.parse_fallbacks += 1
         dec = self.decoder
         si = dec.streaminfo
         remaining = self._remaining()

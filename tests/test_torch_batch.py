@@ -214,7 +214,8 @@ def test_port_runs_with_jax_blocked():
     """In a process where jax, jaxlib and every module of the JAX package
     fail to import: import every module of the port, encode with the
     port's BatchEncoder and its own FlacSampleWriter, and decode the
-    result with the port's BatchDecoder."""
+    result with the port's BatchDecoder, with the host parse and with the
+    device parse."""
     code = """
 import importlib, importlib.abc, io, pkgutil, sys
 
@@ -251,10 +252,14 @@ for cls, kw in ((FlacSampleWriter, {}), (BatchEncoder, {"device": "cpu"})):
     enc.finalize()
     outs.append(buf.getvalue())
 assert outs[0] == outs[1]
-with BatchDecoder(io.BytesIO(outs[1]), batch_frames=2, device="cpu") as dec:
-    pcm = dec.read_all_device()
-    assert dec.device_frames == 2 and dec.host_frames == 1
-assert (pcm.numpy().reshape(-1) == x).all()
+for device_parse in (False, True):
+    with BatchDecoder(io.BytesIO(outs[1]), batch_frames=2, device="cpu",
+                      device_parse=device_parse) as dec:
+        pcm = dec.read_all_device()
+        assert dec.device_frames == 2 and dec.host_frames == 1
+        assert dec.parse_fallbacks == int(device_parse)
+    assert (pcm.numpy().reshape(-1) == x).all()
+assert "flac_codec_tpu_torch.ops.framescan" in sys.modules
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flac_codec_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("ok")

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from flac_codec_tpu_torch import kernels
-from flac_codec_tpu_torch.decode import FlacSampleReader
+from flac_codec_tpu_torch import kernels, native
+from flac_codec_tpu_torch.bitio import BitWriter
+from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
 from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+from flac_codec_tpu_torch.ops import framescan as tfs
 from flac_codec_tpu_torch.ops import lpc as tlpc
 from flac_codec_tpu_torch.ops import packpanel as tpp
 from flac_codec_tpu_torch.ops.common import u32_to_i32
@@ -51,6 +53,7 @@ def _symbols(gen, dev, rows, M, max_width, density=0.9):
     (64, 4229, 3712, 28),      # 24-bit budget
     (8, 300, 64, 32),          # rows that overflow the panel
     (3, 65600, 14000, 8),      # > 48 KB of shared memory
+    (2, 420000, 60000, 9),     # > 227 KB: the panel in global memory
 ])
 def test_pack_symbols_kernel_matches_plain(dev, rows, M, P, max_width):
     gen = torch.Generator(device=dev).manual_seed(rows + M)
@@ -70,6 +73,7 @@ def test_pack_symbols_kernel_matches_plain(dev, rows, M, P, max_width):
     (256, 2, 2688, 5248),      # preset -8 stereo
     (16, 8, 2688, 21696),      # 8 channels: > 48 KB of shared memory
     (5, 1, 128, 320),
+    (4, 8, 13696, 107520),     # 8 x 24-bit x 16384: > 227 KB, global
 ])
 def test_splice_kernel_matches_plain(dev, B, S, P, W):
     gen = torch.Generator(device=dev).manual_seed(B * S)
@@ -114,16 +118,23 @@ def test_autocorr_levinson_kernel_matches_host_rounding(dev, N, M):
 
 
 def test_wrappers_refuse_mixed_devices_and_oversized_rows(dev):
+    """Mixed devices raise; a panel or slot past one block's shared memory
+    (227 KB) does not: it is packed in the zeroed output instead."""
     v = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     m = torch.zeros((2, 4), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="different devices"):
         tpp.pack_symbols(v, v, v.cpu(), m, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        tpp.pack_symbols(v, v, v, m, 60000)
+    out, ovf = tpp.pack_symbols(v, v, v, m, 60000)
+    assert out.shape == (2, 60000) and not out.any() and not ovf.any()
     with pytest.raises(ValueError, match="different devices"):
         tpp.splice_subframes(torch.zeros((2, 1, 8), dtype=torch.int32),
                              torch.zeros((2, 1), dtype=torch.int32,
                                          device=dev), 16)
+    out = tpp.splice_subframes(torch.zeros((2, 1, 8), dtype=torch.int32,
+                                           device=dev),
+                               torch.zeros((2, 1), dtype=torch.int32,
+                                           device=dev), 60000)
+    assert out.shape == (2, 60000) and not out.any()
 
 
 @pytest.mark.parametrize("bps,rate", [(16, 44100), (24, 96000)])
@@ -237,3 +248,167 @@ def test_batch_decoder_on_card_is_lossless(dev, bps, channels, block, wasted,
     assert np.array_equal(pcm.cpu().numpy().reshape(-1), inter)
     with FlacSampleReader(io.BytesIO(buf.getvalue())) as r:
         assert np.array_equal(r.read_to_end(), inter)
+
+
+def _encode(inter, opts, rate, bps, channels, n):
+    buf = io.BytesIO()
+    enc = FlacSampleWriter(buf, opts, rate, bps, channels, total_samples=n)
+    enc.write(inter)
+    enc.finalize()
+    return buf.getvalue()
+
+
+def _signal(rng, n, channels, bps, wasted=0, noise=99):
+    t = np.arange(n)
+    amp = 1 << (bps - 3 - wasted)
+    noise = min(noise, amp // 2)
+    return (np.stack([amp * np.sin(t * (0.01 + 0.003 * c))
+                      + rng.integers(-noise, noise + 1, n)
+                      for c in range(channels)]).T.reshape(-1)
+            .astype(np.int32) << wasted)
+
+
+def _parse_inputs(data, dev, frames=256):
+    """The native scan of a stream's first ``frames`` frames as the
+    inputs of parse_frame_bodies on ``dev``, and the native raw parse."""
+    dec = Decoder(io.BytesIO(data))
+    si = dec.streaminfo
+    view = dec.r.np_view()
+    nat = native.load()
+    args = (view, dec.r.pos, frames, si.sample_rate, si.channels,
+            si.bits_per_sample, si.maximum_block_size, dec.total_samples)
+    scan, raw = nat.scan_frames(*args), nat.parse_frames_raw(*args)
+    assert scan["n"] == raw["n"] > 0
+    t = [torch.as_tensor(view.copy()),
+         torch.as_tensor(scan["body_off"].astype(np.int64)),
+         torch.as_tensor(scan["body_bytes"].astype(np.int32) * 8),
+         torch.as_tensor(scan["assignment"].astype(np.int32))]
+    return ([x.to(dev) for x in t] + [si.maximum_block_size, si.channels,
+                                      si.bits_per_sample], raw)
+
+
+def _k4_matches_plain(args):
+    n0 = kernels.LAUNCHES["parse_frame_bodies"]
+    got = tfs.parse_frame_bodies(*args)
+    want = tfs.parse_frame_bodies_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["parse_frame_bodies"] == n0 + 1
+    for key, w in want.items():
+        assert got[key].dtype == w.dtype and torch.equal(got[key], w), key
+    return got
+
+
+@pytest.mark.parametrize("bps,channels,block,wasted,opts", [
+    (16, 2, 4096, 0, Options.best()),
+    (24, 2, 1152, 0, Options.best()),                 # rice2
+    (16, 8, 1024, 2, Options.best()),                 # wasted bits
+    (20, 6, 576, 0, Options.best().with_max_lpc_order(32)),
+    (16, 1, 4608, 0, Options.fast()),                 # FIXED
+    (8, 2, 192, 0, Options(block_size=192)),
+])
+def test_parse_frame_bodies_kernel_matches_plain(dev, bps, channels, block,
+                                                 wasted, opts):
+    """K4 against its plain version and the native raw parse."""
+    rng = np.random.default_rng(bps * channels + block)
+    n = block * 7 + 5
+    data = _encode(_signal(rng, n, channels, bps, wasted),
+                   opts.with_block_size(block), 48000, bps, channels, n)
+    args, raw = _parse_inputs(data, dev)
+    got = _k4_matches_plain(args)
+    assert bool(got["ok"].all())
+    for key in ("buf", "order", "shift", "wasted", "qcoeffs"):
+        assert np.array_equal(got[key].cpu().numpy(),
+                              raw[key].astype(np.int32)), key
+
+
+def test_parse_frame_bodies_kernel_flags_like_plain(dev):
+    """Damaged and garbage bodies: ok and every output as the plain
+    version has them (zeros where not ok)."""
+    rng = np.random.default_rng(11)
+    n = 256 * 40
+    data = _encode(_signal(rng, n, 2, 16, noise=3000),
+                   Options.best().with_block_size(256), 44100, 16, 2, n)
+    args, _ = _parse_inputs(data, dev)
+    bad = 0
+    for t in range(8):
+        d = args[0].clone()
+        flips = torch.as_tensor(rng.integers(0, d.shape[0], 30), device=dev)
+        d[flips] ^= torch.as_tensor(1 << rng.integers(0, 8, 30),
+                                    dtype=torch.uint8, device=dev)
+        got = _k4_matches_plain([d, *args[1:]])
+        bad += int((~got["ok"]).sum())
+    assert bad > 0
+    L, B = 5000, 64
+    garbage = [torch.as_tensor(rng.integers(0, 256, L), dtype=torch.uint8),
+               torch.as_tensor(rng.integers(-8, L, B), dtype=torch.int64),
+               torch.as_tensor(rng.integers(-8, 4000, B), dtype=torch.int32),
+               torch.as_tensor(rng.integers(0, 11, B), dtype=torch.int32)]
+    _k4_matches_plain([x.to(dev) for x in garbage] + [32, 2, 16])
+
+
+def test_parse_frame_bodies_kernel_unary_limit(dev):
+    """Unary runs of MAX_Q and MAX_Q + 1 zeros (the second not ok)."""
+    bodies = []
+    for zeros in (tfs.MAX_Q, tfs.MAX_Q + 1):
+        w = BitWriter()
+        w.write(8 << 1, 8)              # FIXED order 0, one partition, k 0
+        w.write(0, 10)
+        w.write_unary(zeros)
+        for _ in range(15):
+            w.write_unary(1)
+        bodies.append((w.bit_count, w))
+        w.byte_align()
+    data = b"".join(w.getvalue() for _, w in bodies)
+    args = [torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev),
+            torch.tensor([0, len(bodies[0][1].getvalue())], device=dev),
+            torch.tensor([n for n, _ in bodies], dtype=torch.int32,
+                         device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev), 16, 1, 16]
+    got = _k4_matches_plain(args)
+    assert got["ok"].tolist() == [True, False]
+
+
+@pytest.mark.parametrize("bps,channels,block", [(16, 2, 4096), (24, 2, 1152),
+                                                (16, 8, 1024)])
+def test_batch_decoder_device_parse_on_card_is_lossless(dev, bps, channels,
+                                                        block):
+    rng = np.random.default_rng(bps + 7 * channels)
+    n = block * 9 + 333
+    inter = _signal(rng, n, channels, bps)
+    data = _encode(inter, Options.best().with_block_size(block), 48000, bps,
+                   channels, n)
+    kernels.reset_launches()
+    with BatchDecoder(io.BytesIO(data), batch_frames=4, device=dev,
+                      device_parse=True) as dec:
+        pcm = dec.read_all_device()
+        assert (dec.device_frames, dec.host_frames) == (9, 1)
+        assert dec.parse_fallbacks == 1          # the short tail
+    assert kernels.LAUNCHES["parse_frame_bodies"] == 3
+    assert kernels.LAUNCHES["predict_lpc"] > 0
+    assert pcm.device.type == "cuda"
+    assert np.array_equal(pcm.cpu().numpy().reshape(-1), inter)
+
+
+def test_eight_channel_24_bit_block_16384_encodes_on_card(dev):
+    """A 420 KB frame slot (8 channels, 24 bits, block 16384; past one
+    block's shared memory): byte-identical to the host encoder in f64, and
+    lossless back through both parse paths."""
+    rng = np.random.default_rng(16384)
+    n = 16384 * 3 + 500
+    inter = _signal(rng, n, 8, 24, noise=999)
+    opts = Options.best().with_block_size(16384)
+    host = _encode(inter, opts, 96000, 24, 8, n)
+    kernels.reset_launches()
+    buf = io.BytesIO()
+    enc = BatchEncoder(buf, opts, 96000, 24, 8, total_samples=n,
+                       batch_frames=4, analysis="f64", device=dev)
+    enc.write(inter)
+    enc.finalize()
+    assert kernels.LAUNCHES["splice_subframes"] > 0
+    assert enc.device_frames == 3 and enc.fallback_frames == 0
+    assert buf.getvalue() == host
+    for device_parse in (False, True):
+        with BatchDecoder(io.BytesIO(host), batch_frames=4, device=dev,
+                          device_parse=device_parse) as dec:
+            pcm = dec.read_all_device()
+        assert np.array_equal(pcm.cpu().numpy().reshape(-1), inter)
