@@ -30,9 +30,11 @@ non-zero without one, and outside a checkout).  Phases:
    version, bit for bit and ``ok`` included: seeded small-block streams
    and conformance streams in every construct (constant, verbatim, FIXED,
    LPC to order 32, wasted bits, escaped and constant partitions, rice2,
-   8 channels, 24 bits, left/right/mid-side), damaged copies of them and
-   garbage bodies; then against the native raw parse on the first
-   256-frame batch of the 120 s and 24-bit streams; median times;
+   8 channels, 24 bits, left/right/mid-side), damaged copies of them,
+   garbage bodies, and hand-built streams whose Rice partitions meet the
+   edges of K4's 1024-bit windows (``window_edge_stream``); then against
+   the native raw parse on the first 256-frame batch of the 120 s and
+   24-bit streams; median times;
 10. the device-parse decode path: the three streams through
    ``BatchDecoder(device="cuda", device_parse=True)``; the PCM must equal
    the input, K4 and ``predict_lpc`` must have launched, and no batch may
@@ -76,6 +78,10 @@ BATCH_FRAMES = 256
 # bound a lower bound
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+
+# K4 per 256-frame batch of the 120 s 16-bit stream in its earlier design
+# (one thread per frame body), as PERF.md records it from another H100
+K4_ONE_THREAD_MS = 1.5677
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -437,10 +443,11 @@ def check_predict(dev, stream16: bytes):
             "library_ms": None}
 
 
-def parse_inputs(data: bytes, dev, frames=BATCH_FRAMES):
+def parse_inputs(data: bytes, dev, frames=BATCH_FRAMES, whole=True):
     """The native scan of a stream's first ``frames`` frames as the
     arguments of parse_frame_bodies on ``dev``, and the native raw parse
-    of the same frames."""
+    of the same frames (``whole``: it must parse every frame the scan
+    found)."""
     import torch
 
     from flac_codec_tpu_torch import native
@@ -453,7 +460,7 @@ def parse_inputs(data: bytes, dev, frames=BATCH_FRAMES):
     args = (view, dec.r.pos, frames, si.sample_rate, si.channels,
             si.bits_per_sample, si.maximum_block_size, dec.total_samples)
     scan, raw = nat.scan_frames(*args), nat.parse_frames_raw(*args)
-    if scan["n"] == 0 or scan["n"] != raw["n"]:
+    if scan["n"] == 0 or (whole and scan["n"] != raw["n"]):
         raise AssertionError(f"native scan found {scan['n']} frames, the "
                              f"raw parse {raw['n']}")
     t = [torch.as_tensor(view.copy()),
@@ -524,6 +531,229 @@ def small_streams():
     return out
 
 
+# hand-built streams whose Rice partitions meet the edges of K4's 1024-bit
+# windows (see window_edge_stream)
+WINDOW_EDGE_CASES = ("order-0 partition", "codes ending on window edges",
+                     "unary runs past a window", "k = 0", "rice2 k 29 and 30",
+                     "rice2 quotient past 2^30 >> k",
+                     "escape between Rice partitions",
+                     "body ends inside a code")
+
+
+def window_edge_stream(name: str):
+    """One of WINDOW_EDGE_CASES as (bytes, cut, ok): a stream of hand-built
+    frames, ``cut`` maps a frame to the body length in bits to give the
+    parser in place of the scan's (a body that ends inside a code), ``ok``
+    whether each frame's body parses.  The window edges are reckoned from
+    byte 0 of the stream: where the parse's data starts when it is handed
+    the whole stream, as ``parse_inputs`` does.
+
+    * order-0 partition: block 4096, one partition of 4094 codes a
+      channel, ~40 windows;
+    * codes ending on window edges: 64 partitions a channel in turn end
+      exactly on their first window's edge, have a code straddling it,
+      have a code in their middle end on it, or are random;
+    * unary runs past a window: codes with 1,000-5,000 zeros, first, in
+      the middle and last in their partitions;
+    * k = 0: partitions of 128 one-bit codes, 32 to a word, and of short
+      codes;
+    * rice2 k 29 and 30: quotients up to 2^30 >> k;
+    * rice2 quotient past 2^30 >> k: two frames, not ok;
+    * escape between Rice partitions: escaped partitions of widths 9, 0 and
+      17 between Rice partitions;
+    * body ends inside a code: its length cut to the middle of a code
+      inside a window; not ok.
+    """
+    from flac_codec_tpu_torch.bitio import BitWriter
+    from flac_codec_tpu_torch.crc import crc16
+    from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+    from flac_codec_tpu_torch.format.frame import FrameHeader
+
+    rng = np.random.default_rng(100 + WINDOW_EDGE_CASES.index(name))
+    window = 1024
+
+    def stream(bodies, block, bps):
+        """Frames of two independent channels around the bodies; a body
+        writes its subframes into w, ``at()`` is the stream bit w writes
+        next, and it may return a stream bit at which to cut the body."""
+        n = block * len(bodies)
+        buf = io.BytesIO()
+        enc = FlacSampleWriter(buf, Options.best().with_block_size(block),
+                               48000, bps, 2, total_samples=n)
+        enc.write(np.zeros(2 * n, np.int32))
+        enc.finalize()
+        head = buf.getvalue()
+        out = bytearray(head[:len(head) - enc.encoder.frame_bytes_written])
+        cut = {}
+        for i, body in enumerate(bodies):
+            w = BitWriter()
+            FrameHeader(False, block, 48000, 1, bps, i).write(w)
+            start, header = len(out) * 8, w.bit_count
+            mark = body(w, lambda: start + w.bit_count)
+            if mark is not None:
+                cut[i] = mark - start - header
+            w.byte_align()
+            frame = w.getvalue()
+            out += frame + crc16(frame).to_bytes(2, "big")
+        return bytes(out), cut
+
+    def fixed(w, bps, method, po):
+        """FIXED order 2, seeded warm-ups, the residual section's head."""
+        w.write(10 << 1, 8)
+        for _ in range(2):
+            w.write_signed(int(rng.integers(-999, 999)), bps)
+        w.write(method, 2)
+        w.write(po, 4)
+
+    def codes(w, k, qs):
+        for q in qs:
+            w.write_unary(int(q))
+            w.write(int(rng.integers(0, 1 << k)), k)
+
+    def short(m, p=0.35):
+        return list(rng.geometric(p, m) - 1)
+
+    def to_edge(at, m, k, back=0):
+        """Quotients of m codes from stream bit ``at`` that end ``back``
+        bits before the edge of the window holding ``at``."""
+        extra = at // 32 * 32 + window - back - at - m * (k + 1)
+        return list(rng.multinomial(extra, [1 / m] * m))
+
+    def order0(w, at):
+        for _ in range(2):
+            fixed(w, 16, 0, 0)
+            w.write(7, 4)
+            codes(w, 7, short(4094))
+
+    def edges(w, at):
+        k = 8
+        for _ in range(2):
+            fixed(w, 16, 0, 6)
+            for p in range(64):
+                m = 62 if p == 0 else 64
+                w.write(k, 4)
+                if p % 4 == 0:        # the last code ends on the edge
+                    qs = to_edge(at(), m, k)
+                elif p % 4 == 1:      # a code straddles it
+                    qs = to_edge(at(), m - 20, k, 3) + [40] + short(19)
+                elif p % 4 == 2:      # a code in the middle ends on it
+                    qs = to_edge(at(), m - 10, k) + short(10)
+                else:
+                    qs = short(m)
+                codes(w, k, qs)
+
+    def long_unary(w, at):
+        # sample index -> quotient: the first code of a partition, codes
+        # in the middle of two, and the last code of one
+        for runs in ({2: 4000, 300: 1500, 600: 1000}, {1023: 5000}):
+            fixed(w, 16, 0, 2)
+            for p in range(4):
+                w.write(2, 4)
+                first = max(256 * p, 2)
+                qs = short(256 * (p + 1) - first)
+                for j, q in runs.items():
+                    if first <= j < 256 * (p + 1):
+                        qs[j - first] = q
+                codes(w, 2, qs)
+
+    def k0(w, at):
+        for c in range(2):
+            fixed(w, 16, 0, 3)
+            for p in range(8):
+                w.write(0, 4)
+                m = 126 if p == 0 else 128
+                codes(w, 0, [0] * m if (p + c) % 3 == 0
+                      else short(m, 0.6))
+
+    def rice2(bad=None):
+        """k 29 and 30 in turn, a quotient at 2^30 >> k in each partition,
+        and one past it in partition ``bad`` (channel, partition)."""
+        def body(w, at):
+            for c in range(2):
+                fixed(w, 24, 1, 2)
+                for p in range(4):
+                    k = 29 + (p + c) % 2
+                    qmax = (1 << 30) >> k
+                    qs = list(rng.integers(0, qmax + 1, 62 if p == 0 else 64))
+                    qs[p] = qmax
+                    if (c, p) == bad:
+                        qs[7] = qmax + 1
+                    w.write(k, 5)
+                    codes(w, k, qs)
+        return body
+
+    def escapes(w, at):
+        for _ in range(2):
+            fixed(w, 16, 0, 3)
+            for p, (kind, x) in enumerate((("r", 6), ("e", 9), ("r", 5),
+                                           ("e", 0), ("r", 7), ("e", 17),
+                                           ("r", 4), ("r", 9))):
+                m = 510 if p == 0 else 512
+                if kind == "r":
+                    w.write(x, 4)
+                    codes(w, x, short(m))
+                else:
+                    w.write(15, 4)
+                    w.write(x, 5)
+                    for v in (rng.integers(-(1 << x >> 1), 1 << x >> 1, m)
+                              if x else ()):
+                        w.write_signed(int(v), x)
+
+    def cut_inside(w, at):
+        mark = None
+        for c in range(2):
+            fixed(w, 16, 0, 2)
+            for p in range(4):
+                w.write(8, 4)
+                for j, q in enumerate(short(254 if p == 0 else 256)):
+                    if (c, p, j) == (0, 1, 20):
+                        mark = at() + 3
+                    codes(w, 8, [q])
+        return mark
+
+    # name: block size, bits per sample, each frame's body
+    block, bps, bodies = {
+        "order-0 partition": (4096, 16, [order0]),
+        "codes ending on window edges": (4096, 16, [edges]),
+        "unary runs past a window": (1024, 16, [long_unary]),
+        "k = 0": (1024, 16, [k0]),
+        "rice2 k 29 and 30": (256, 24, [rice2(), rice2()]),
+        "rice2 quotient past 2^30 >> k": (256, 24, [rice2((0, 1)),   # k 30
+                                                    rice2((1, 1))]),  # k 29
+        "escape between Rice partitions": (4096, 16, [escapes]),
+        "body ends inside a code": (1024, 16, [cut_inside])}[name]
+    data, cut = stream(bodies, block, bps)
+    ok = [not (name.startswith("rice2 quotient") or i in cut)
+          for i in range(len(bodies))]
+    return data, cut, ok
+
+
+def window_edge_inputs(name: str, dev):
+    """window_edge_stream(name) as the arguments of parse_frame_bodies on
+    ``dev`` (its cut bodies cut), the native raw parse, and ``ok``."""
+    data, cut, ok = window_edge_stream(name)
+    args, raw = parse_inputs(data, dev, whole=False)
+    for i, n in cut.items():
+        args[2][i] = n
+    return args, raw, ok
+
+
+def same_as_native(got: dict, raw: dict, frames: int) -> bool:
+    """The first ``frames`` frames of a parse equal the native raw parse,
+    array for array."""
+    return all(np.array_equal(got[k][:frames].cpu().numpy(),
+                              raw[k][:frames].astype(np.int32))
+               for k in ("buf", "order", "shift", "wasted", "qcoeffs"))
+
+
+def parses_as_built(got: dict, raw: dict, ok: list) -> bool:
+    """A parse of window_edge_inputs: ``ok`` as built, and the frames
+    before the first that is not ok equal to the native raw parse."""
+    n = ok.index(False) if False in ok else len(ok)
+    return (got["ok"].tolist() == ok and raw["n"] >= n
+            and same_as_native(got, raw, n))
+
+
 def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
     """Phase 9: K4 against its plain version, then against the native raw
     parse at full width; median times."""
@@ -566,19 +796,30 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
                torch.as_tensor(rng.integers(0, 11, B), dtype=torch.int32)]
     bad = k4_vs_plain("garbage", [x.to(dev) for x in garbage] + [64, 2, 16])
     not_ok += int((~bad["ok"]).sum())
-    print(f"K4 parse_frame_bodies: {len(sets)} streams, their damaged copies "
-          f"and {B} garbage bodies bit-exact with the plain version, ok "
-          f"included ({lanes + B} bodies, {not_ok} not ok) in "
+    # Rice partitions at the edges of K4's windows: bit-exact with the
+    # plain version, and with the native raw parse on the bodies that parse
+    edge_bodies = 0
+    for name in WINDOW_EDGE_CASES:
+        args, raw, ok = window_edge_inputs(name, dev)
+        got = k4_vs_plain(name, args)
+        if not parses_as_built(got, raw, ok):
+            raise AssertionError(f"parse_frame_bodies ({name}): ok "
+                                 f"{got['ok'].tolist()}, want {ok}, or the "
+                                 "bodies that parse differ from the native "
+                                 "raw parse")
+        edge_bodies += len(ok)
+        not_ok += ok.count(False)
+    print(f"K4 parse_frame_bodies: {len(sets)} streams, their damaged copies, "
+          f"{B} garbage bodies and {len(WINDOW_EDGE_CASES)} window-edge "
+          f"streams bit-exact with the plain version, ok included "
+          f"({lanes + B + edge_bodies} bodies, {not_ok} not ok) in "
           f"{time.perf_counter() - t0:.1f} s")
 
     full = {}
     for label, data in (("120 s 16-bit", data16), ("20 s 24-bit", data24)):
         args, raw = full[label] = parse_inputs(data, dev)
         got = parse_frame_bodies(*args)
-        same = bool(got["ok"].all()) and all(
-            np.array_equal(got[k].cpu().numpy(), raw[k].astype(np.int32))
-            for k in ("buf", "order", "shift", "wasted", "qcoeffs"))
-        if not same:
+        if not (bool(got["ok"].all()) and same_as_native(got, raw, raw["n"])):
             raise AssertionError(f"parse_frame_bodies ({label}) disagrees "
                                  "with the native raw parse")
         print(f"K4 parse_frame_bodies {label}: first {raw['n']} frames equal "
@@ -596,7 +837,9 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
                10 * (B * C * N + int(raw["order"].astype(np.int64).sum())))
     print(f"K4 parse_frame_bodies: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}) (median; "
-          f"B={B} C={C} N={N}, {body} body bytes)")
+          f"B={B} C={C} N={N}, {body} body bytes); the earlier "
+          f"one-thread-per-body design: {K4_ONE_THREAD_MS} ms (recorded on "
+          "another machine)")
     return {"name": "parse_frame_bodies", "route": "cuda",
             "source": "flac_codec_tpu_torch/csrc/parse_frames.cu",
             "replaces": "flac_codec_tpu/ops/framescan.py:117",

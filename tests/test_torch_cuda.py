@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import WINDOW_EDGE_CASES, parses_as_built, window_edge_inputs
 from flac_codec_tpu_torch import kernels, native
 from flac_codec_tpu_torch.bitio import BitWriter
 from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
@@ -344,6 +345,16 @@ def test_parse_frame_bodies_kernel_flags_like_plain(dev):
                torch.as_tensor(rng.integers(-8, 4000, B), dtype=torch.int32),
                torch.as_tensor(rng.integers(0, 11, B), dtype=torch.int32)]
     _k4_matches_plain([x.to(dev) for x in garbage] + [32, 2, 16])
+
+
+@pytest.mark.parametrize("name", WINDOW_EDGE_CASES)
+def test_parse_frame_bodies_kernel_window_edges(dev, name):
+    """Rice partitions at the edges of K4's 1024-bit windows
+    (``chip_smoke.window_edge_stream``): K4 against its plain version, ok
+    included, and against the native raw parse on the bodies that
+    parse."""
+    args, raw, ok = window_edge_inputs(name, dev)
+    assert parses_as_built(_k4_matches_plain(args), raw, ok)
 
 
 def test_parse_frame_bodies_kernel_unary_limit(dev):

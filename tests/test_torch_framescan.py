@@ -7,7 +7,8 @@ corpus; every comparison is exact equality.
 * ``parse_frame_bodies_plain`` (what ``parse_frame_bodies`` runs for CPU
   tensors) against the JAX ``parse_frame_bodies`` in interpret mode, as
   ``tests/test_framescan.py`` runs it (BS=48, one word-panel width), and
-  against the native raw parse ``parse_frames_raw``;
+  against the native raw parse ``parse_frames_raw``, also on hand-built
+  streams whose Rice partitions meet the CUDA kernel's window edges;
 * each construct that makes a body not ``ok``, on hand-built bodies,
   against the JAX function's ``ok``;
 * ``parse_gate`` against the JAX gate and ``fixed_compatible_mask``;
@@ -28,6 +29,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 import torch
 
+from chip_smoke import WINDOW_EDGE_CASES, parses_as_built, window_edge_inputs
 from flac_codec_tpu.ops import framescan as jfs
 from flac_codec_tpu.parallel.batch_decode import BatchDecoder as JaxDecoder
 from flac_codec_tpu_torch import native
@@ -171,6 +173,19 @@ def test_plain_matches_native_raw_parse(case):
     for key in KEYS:
         np.testing.assert_array_equal(got[key].numpy(),
                                       raw[key].astype(np.int32), key)
+
+
+@pytest.mark.parametrize("name", WINDOW_EDGE_CASES)
+def test_plain_window_edges_match_native_raw_parse(name):
+    """Rice partitions at the edges of the CUDA kernel's 1024-bit windows
+    (``chip_smoke.window_edge_stream``): ``ok`` as built, every body that
+    parses equal to the native raw parse, zeros for a body that does
+    not."""
+    args, raw, ok = window_edge_inputs(name, torch.device("cpu"))
+    got = tfs.parse_frame_bodies(*args)
+    assert parses_as_built(got, raw, ok)
+    for key in KEYS:
+        assert not got[key][~got["ok"]].any(), key
 
 
 # ---------------------------------------------------------------------------
