@@ -18,8 +18,11 @@ non-zero without one, and outside a checkout).  Phases:
 5. every encode kernel must have launched during phases 3-4;
 6. the decode kernel ``predict_lpc`` against its plain version, bit for
    bit: the raw subframes the port's native parser returns for the 120 s
-   stream (preset -8 decode shapes), and seeded random rows in every tap
-   bucket; median times;
+   stream (preset -8 decode shapes), seeded random rows in every tap
+   bucket, and rows at the int32 boundary (``INT32_EDGE_CASES``); the
+   rows that took its int64 path must be exactly ``int64_rows`` (those
+   that leave int32, here), and the boundary set must have some; median times in every set, the
+   SM clock under load and the cycles a step;
 7. the decode path: the three streams of phases 3-4 through the port's
    ``BatchDecoder(device="cuda")``; the PCM must equal the input exactly,
    and ``predict_lpc`` must have launched;
@@ -378,6 +381,98 @@ def lpc_rows(rng, orders, N, sample_bits=23):
             np.asarray(orders, np.int32))
 
 
+# rows for predict_lpc at the int32 boundary: (name, order, taps most
+# recent first, shift, trajectory).  A trajectory is a smooth int64 row
+# (a triangle wave with seeded noise of +-3) that the predictor tracks,
+# so the residuals fit int32 while the samples cross +-2^31.  "up"/"down"
+# rows leave int32 mid-row and come back, more than once; "top"/"bottom"
+# rows touch 2^31 - 1 or -2^31 exactly, and plateau there, without
+# leaving; "late" leaves in the row's last 8 samples, "early" in its
+# first chunk.
+INT32_EDGE_CASES = (
+    ("up, q=[1], shift 0", 1, [1], 0, "up"),
+    ("down, q=[1], shift 0", 1, [1], 0, "down"),
+    ("up, q=[2,-1], shift 0", 2, [2, -1], 0, "up"),
+    ("down, q=[2,-1], shift 0", 2, [2, -1], 0, "down"),
+    ("up, q=[2^14]*2, shift 15", 2, [1 << 14] * 2, 15, "up"),
+    ("down, q=[2^10]*32, shift 15", 32, [1 << 10] * 32, 15, "down"),
+    ("up, q=[2^12]*8, shift 15", 8, [1 << 12] * 8, 15, "up"),
+    ("late, q=[1], shift 0", 1, [1], 0, "late"),
+    ("early, q=[1], shift 0", 1, [1], 0, "early"),
+    ("top, q=[1], shift 0", 1, [1], 0, "top"),
+    ("bottom, q=[1], shift 0", 1, [1], 0, "bottom"),
+    ("top, q=[2^12]*8, shift 15", 8, [1 << 12] * 8, 15, "top"),
+    ("bottom, q=[2,-1], shift 0", 2, [2, -1], 0, "bottom"),
+)
+
+
+def int32_edge_rows(N: int, seed: int = 31):
+    """The rows of INT32_EDGE_CASES at length N (>= 256): int32 (x, q (R,
+    32), shift, order) and the int64 samples they decode to."""
+    rng = np.random.default_rng(seed)
+    top, bottom = (1 << 31) - 1, -(1 << 31)
+    n = np.arange(N)
+    period = max(N // 5, 96)
+    # the wave starts after the warm-ups (orders up to 32), at its foot
+    tri = np.abs((np.maximum(n - 40, 0) % period) - period // 2)
+    ramp = 3000 * (period // 2 - tri) // (period // 2)  # 0 .. 3000
+    xs, qs, shifts, orders, ys = [], [], [], [], []
+    for _, order, taps, shift, kind in INT32_EDGE_CASES:
+        noise = rng.integers(-3, 4, N)
+        if kind in ("up", "down"):
+            y = top - 1500 + ramp + noise        # crosses 2^31 and back
+        elif kind == "late":
+            y = top - 10 + np.maximum(n - (N - 12), 0) * 2
+        elif kind == "early":
+            y = top - 40 + n * 9
+        else:
+            y = np.minimum(top - 2000 + 2 * ramp + noise, top)
+        if kind in ("down", "bottom"):
+            y = (top + bottom) - y               # mirror: -2^31 - 1 + ...
+            y = np.maximum(y, bottom) if kind == "bottom" else y
+        y = y.astype(np.int64)
+        q = np.zeros(32, np.int64)
+        q[:order] = taps
+        acc = np.zeros(N, np.int64)
+        for j in range(order):
+            acc[j + 1:] += q[j] * y[:N - 1 - j]
+        x = np.where(n >= order, y - (acc >> shift), y)
+        if x.min() < -(1 << 31) or x.max() > (1 << 31) - 1:
+            raise AssertionError("int32_edge_rows: a residual leaves int32")
+        xs.append(x)
+        qs.append(q)
+        shifts.append(shift)
+        orders.append(order)
+        ys.append(y)
+    return (np.array(xs, np.int32), np.array(qs, np.int32),
+            np.array(shifts, np.int32), np.array(orders, np.int32),
+            np.array(ys, np.int64))
+
+
+def sm_clock_under_load(fn, ms: float, seconds: float = 2.0) -> float:
+    """The median SM clock (MHz) that nvidia-smi samples every 100 ms while
+    ``fn`` (taking about ``ms``) runs back to back for ``seconds``."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            for _ in range(max(int(50 / ms), 1)):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    samples = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+    if not samples:
+        raise AssertionError("nvidia-smi gave no SM clock samples")
+    return statistics.median(samples)
+
+
 def check_predict(dev, stream16: bytes):
     """Phase 6: predict_lpc against predict_batch_plain, bit for bit, on
     the 120 s stream's parsed subframes and on seeded random rows."""
@@ -387,6 +482,7 @@ def check_predict(dev, stream16: bytes):
     from flac_codec_tpu_torch.decode import Decoder
     from flac_codec_tpu_torch.ops.predict import predict_batch_plain
     from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS,
+                                                         int64_rows,
                                                          predict_lpc,
                                                          tap_bucket)
 
@@ -413,20 +509,36 @@ def check_predict(dev, stream16: bytes):
         sets.append((f"random taps={t}",
                      [torch.as_tensor(a, device=dev)
                       for a in lpc_rows(rng, orders, N)], t))
-    err = 0
+    # the int32 boundary: INT32_EDGE_CASES among seeded rows, 512 in all
+    edge = int32_edge_rows(N)[:4]
+    rows = lpc_rows(rng, rng.integers(1, 33, n * C - len(edge[0])), N)
+    sets.append(("int32 edge", [torch.as_tensor(np.concatenate([a, b]),
+                                                device=dev)
+                                for a, b in zip(edge, rows)], 32))
+    err, slow_by_set = 0, {}
     for label, args, t in sets:
-        got = predict_lpc(*args, t)
+        slow = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = predict_lpc(*args, t, slow_rows=slow)
         want = predict_batch_plain(*args, t)
         torch.cuda.synchronize()
         e = int((got - want).abs().max())
         if e or not torch.equal(got, want):
             raise AssertionError(f"predict_lpc ({label}) disagrees with its "
                                  f"plain version: max_abs_err={e}")
+        slow_want = int(int64_rows(want, args[1], args[2], t).sum())
+        if int(slow) != slow_want:
+            raise AssertionError(f"predict_lpc ({label}): {int(slow)} rows "
+                                 f"took the int64 path, not {slow_want}")
+        slow_by_set[label] = slow_want
         err = max(err, e)
         print(f"K3 predict_lpc {label}: R={args[0].shape[0]} N={N} taps={t} "
-              "bit-exact")
+              f"bit-exact, {slow_want} rows took the int64 path")
+    if slow_by_set["int32 edge"] == 0:
+        raise AssertionError("predict_lpc: no row of the int32 edge set took "
+                             "the int64 path")
     ms = cuda_ms(lambda: predict_lpc(*real, taps))
     plain_ms = cuda_ms(lambda: predict_batch_plain(*real, taps), reps=3)
+    mhz = sm_clock_under_load(lambda: predict_lpc(*real, taps), ms)
     R = n * C
     order = raw["order"].reshape(-1).astype(np.int64)
     # residuals, taps, shift and order read once, int64 samples written
@@ -435,7 +547,13 @@ def check_predict(dev, stream16: bytes):
                int((np.maximum(N - order, 0) * order * 2).sum()))
     print(f"K3 predict_lpc: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b3['bound_ms']:.4f} ms ({b3['bound_by']}) (median, "
-          f"R={R} N={N} taps={taps})")
+          f"R={R} N={N} taps={taps}); SM clock under load {mhz:.0f} MHz, "
+          f"{ms * 1e-3 * mhz * 1e6 / N:.1f} cycles a step")
+    for label, args, t in sets[1:]:
+        tms = cuda_ms(lambda: predict_lpc(*args, t))
+        print(f"K3 predict_lpc {label}: kernel {tms:.4f} ms, "
+              f"{tms * 1e-3 * mhz * 1e6 / N:.1f} cycles a step (median, "
+              f"R={args[0].shape[0]} N={N})")
     return {"name": "predict_lpc", "route": "cuda",
             "source": "flac_codec_tpu_torch/csrc/predict_lpc.cu",
             "replaces": "flac_codec_tpu/ops/predict_pallas.py:99",

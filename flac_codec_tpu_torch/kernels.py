@@ -132,7 +132,7 @@ def library() -> ctypes.CDLL:
                                                    i32, i32, ptr]
             lib.flac_autocorr_levinson.restype = i32
             lib.flac_predict_lpc.argtypes = [ptr, ptr, i32, ptr, ptr, ptr,
-                                             i32, i32, i32, ptr]
+                                             i32, i32, i32, ptr, ptr]
             lib.flac_predict_lpc.restype = i32
             lib.flac_parse_frames.argtypes = [ptr, ctypes.c_longlong, ptr,
                                               ptr, ptr, i32, i32, i32, i32,

@@ -1794,12 +1794,18 @@ struct FrameMachine {
 // otherwise.
 struct Cand { uint64_t pos; uint32_t block; };
 
+// Bytes from start_byte to the buffer's end; 0 for a start at or past it
+// (an unsigned difference would wrap to a huge span).
+static inline uint64_t bytes_left(uint64_t buf_bytes, uint64_t start_byte) {
+    return start_byte < buf_bytes ? buf_bytes - start_byte : 0;
+}
+
 static void scan_frame_candidates(const uint8_t* buf, uint64_t buf_bytes,
                                   uint64_t start_byte, uint32_t n_frames,
                                   uint32_t sample_rate, uint32_t channels,
                                   uint32_t bps, uint32_t max_block,
                                   std::vector<Cand>& cands) {
-    cands.reserve((buf_bytes - start_byte) / 1024 + 16);
+    cands.reserve(bytes_left(buf_bytes, start_byte) / 1024 + 16);
     const uint8_t* p = buf + start_byte;
     if (buf_bytes < 16) return;
     const uint8_t* const end = buf + buf_bytes - 16;
@@ -2096,7 +2102,7 @@ int64_t nat_decode_frames_mt(
     uint32_t* error, uint32_t nthreads) {
     if (!tables_ready) init_tables();
     uint64_t start_byte = start_bitpos >> 3;
-    if (nthreads <= 1 || buf_bytes - start_byte < (1u << 18))
+    if (nthreads <= 1 || bytes_left(buf_bytes, start_byte) < (1u << 18))
         return nat_decode_frames_ilv(buf, buf_bytes, start_bitpos, n_frames,
                                  sample_rate, channels, bps, max_block,
                                  remaining_samples, out, block_sizes,
@@ -2134,7 +2140,7 @@ int64_t nat_decode_frames_mt(
         uint32_t nt = std::min<uint32_t>(nthreads, (uint32_t)cands.size() / 2);
         // span boundaries: candidate indices at ~equal byte intervals
         std::vector<size_t> split(nt + 1);
-        uint64_t span_bytes = (buf_bytes - start_byte) / nt;
+        uint64_t span_bytes = bytes_left(buf_bytes, start_byte) / nt;
         split[0] = 0;
         for (uint32_t t = 1; t < nt; t++) {
             uint64_t target = start_byte + (uint64_t)t * span_bytes;
@@ -2228,7 +2234,7 @@ int64_t nat_decode_frames_ilv(
     if (!tables_ready) init_tables();
     uint64_t start_byte = start_bitpos >> 3;
     if ((start_bitpos & 7) || buf_bytes < (1u << 14)
-        || buf_bytes - start_byte < (1u << 14))
+        || bytes_left(buf_bytes, start_byte) < (1u << 14))
         return nat_decode_frames(buf, buf_bytes, start_bitpos, n_frames,
                                  sample_rate, channels, bps, max_block,
                                  remaining_samples, out, block_sizes,
@@ -2556,7 +2562,7 @@ int64_t nat_parse_frames_raw(
     // raws bookkeeping... they are supported (raws[8]); gate only width.
     if (!(start_bitpos & 7) && bps < 26 && channels <= 8
         && block_size > 14 && buf_bytes >= (1u << 14)
-        && buf_bytes - start_byte >= (1u << 14)
+        && bytes_left(buf_bytes, start_byte) >= (1u << 14)
         && !getenv("FLAC_TPU_NO_ILV")) {
         std::vector<Cand> cands;
         scan_frame_candidates(buf, buf_bytes, start_byte, n_frames,

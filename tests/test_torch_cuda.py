@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import WINDOW_EDGE_CASES, parses_as_built, window_edge_inputs
+from chip_smoke import (WINDOW_EDGE_CASES, int32_edge_rows, parses_as_built,
+                        window_edge_inputs)
 from flac_codec_tpu_torch import kernels, native
 from flac_codec_tpu_torch.bitio import BitWriter
 from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
@@ -25,7 +26,8 @@ from flac_codec_tpu_torch.ops import lpc as tlpc
 from flac_codec_tpu_torch.ops import packpanel as tpp
 from flac_codec_tpu_torch.ops.common import u32_to_i32
 from flac_codec_tpu_torch.ops.predict import predict_batch_plain
-from flac_codec_tpu_torch.ops.predict_pallas import TAP_BUCKETS, predict_lpc
+from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS, int64_rows,
+                                                     predict_lpc)
 from flac_codec_tpu_torch.parallel.batch import BatchEncoder
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 
@@ -178,10 +180,12 @@ def _lpc_rows(rng, orders, N, sample_bits=23):
 
 
 @pytest.mark.parametrize("taps", TAP_BUCKETS)
-@pytest.mark.parametrize("R,N", [(512, 4096), (37, 1000), (1, 17)])
+@pytest.mark.parametrize("R,N", [(512, 4096), (37, 1000), (1, 17),
+                                 (33, 23), (6, 25), (5, 4), (40, 1001)])
 def test_predict_lpc_kernel_matches_plain(dev, taps, R, N):
-    """Every tap bucket, rows that do not fill a warp, lengths that do
-    not fill a chunk, order-0 rows and full-order rows."""
+    """Every tap bucket, rows that do not fill a warp, lengths below and
+    not a multiple of the unrolled chunk (16, 24 or 32 steps), odd
+    lengths (no 16-byte accesses), order-0 rows and full-order rows."""
     rng = np.random.default_rng(taps * R + N)
     orders = rng.integers(0, taps + 1, R)
     orders[0] = taps
@@ -199,17 +203,53 @@ def test_predict_lpc_kernel_matches_plain(dev, taps, R, N):
     assert np.array_equal(got.cpu().numpy(), y)
 
 
-def test_predict_lpc_kernel_shift_semantics(dev):
-    """Shifts outside [0, 63] shift in sign bits only; orders past N."""
-    rng = np.random.default_rng(9)
-    x = torch.as_tensor(rng.integers(-(1 << 20), 1 << 20, (4, 64)),
-                        dtype=torch.int32, device=dev)
-    q = torch.zeros((4, 32), dtype=torch.int32, device=dev)
-    q[:, :2] = torch.tensor([[3, -1], [1, 1], [5, 0], [1, 0]])
-    shift = torch.tensor([64, -3, 70, 2], dtype=torch.int32, device=dev)
-    order = torch.tensor([2, 2, 1, 80], dtype=torch.int32, device=dev)
-    got = predict_lpc(x, q, shift, order, 4)
-    assert torch.equal(got, predict_batch_plain(x, q, shift, order, 4))
+@pytest.mark.parametrize("taps", TAP_BUCKETS)
+def test_predict_lpc_kernel_shift_semantics(dev, taps):
+    """Orders past N, order 0 and order = taps in one batch, shifts -3,
+    64 and 70 (sign bits only; those rows take the int64 path), and
+    residuals read from a pointer that is not 16-byte aligned."""
+    rng = np.random.default_rng(40 + taps)
+    N = 48
+    orders = np.array([0, taps, N + 7, taps, 1, taps // 2, taps, 0])
+    arrays, _ = _lpc_rows(rng, orders, N, sample_bits=20)
+    arrays[2] = np.array([-3, 64, 70, 2, 0, 63, 5, 70], np.int32)
+    args = [torch.as_tensor(a, device=dev) for a in arrays]
+    want = predict_batch_plain(*args, taps)
+    slow = torch.zeros(1, dtype=torch.int32, device=dev)
+    assert torch.equal(predict_lpc(*args, taps, slow_rows=slow), want)
+    # shifts -3, 64 and 70 read as 63, past 51: the int64 path
+    assert int(slow) == int(int64_rows(want, args[1], args[2], taps).sum())
+    flat = torch.zeros(args[0].numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:] = args[0].reshape(-1)
+    shifted = flat[1:].view(args[0].shape)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(predict_lpc(shifted, *args[1:], taps), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("taps", TAP_BUCKETS)
+@pytest.mark.parametrize("N", [4096, 1001, 256])
+def test_predict_lpc_kernel_int32_edge(dev, taps, N):
+    """Rows that leave int32 mid-row and come back, leave in the last
+    chunk or the first, or sit at -2^31 and 2^31 - 1 without leaving
+    (``chip_smoke.INT32_EDGE_CASES``, those with order <= taps), among
+    seeded ordinary rows: bit-exact with the plain version, and exactly
+    the rows that leave int32 take the int64 path."""
+    x, q, shift, order, y = int32_edge_rows(N)
+    keep = order <= taps
+    rng = np.random.default_rng(taps + N)
+    orders = rng.integers(0, taps + 1, 45)
+    arrays, ry = _lpc_rows(rng, orders, N)
+    arrays = [np.concatenate([a[keep], b])
+              for a, b in zip((x, q, shift, order), arrays)]
+    args = [torch.as_tensor(a, device=dev) for a in arrays]
+    slow = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = predict_lpc(*args, taps, slow_rows=slow)
+    want = predict_batch_plain(*args, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), np.concatenate([y[keep], ry]))
+    assert int(slow) == int(int64_rows(want, args[1], args[2], taps).sum()) > 0
 
 
 def test_predict_lpc_refuses_mixed_devices(dev):

@@ -5,8 +5,9 @@ Inputs come from numpy seeds or from the committed conformance corpus
 equality: the inverse-LPC recurrence is exact in int64 in both packages.
 
 * ``predict_batch_plain`` (what ``predict_lpc`` runs for CPU tensors)
-  against the JAX int64 scan ``predict_batch``, and against the Pallas
-  ``predict_batch_pallas`` in interpret mode on its gated domain;
+  against the JAX int64 scan ``predict_batch`` (rows whose samples leave
+  int32 included), and against the Pallas ``predict_batch_pallas`` in
+  interpret mode on its gated domain;
 * ``predict_fixed_batch`` and ``fixed_compatible_mask`` against JAX's;
 * ``BatchDecoder(device="cpu")`` against the JAX ``BatchDecoder`` and the
   encoded samples, on host-encoded streams and on every corpus stream
@@ -26,6 +27,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 import torch
 
+from chip_smoke import INT32_EDGE_CASES, int32_edge_rows
 from flac_codec_tpu.cli import flac2wav as jax_flac2wav
 from flac_codec_tpu.ops import predict as jpredict
 from flac_codec_tpu.ops.predict_pallas import (pallas_predict_ok,
@@ -34,7 +36,7 @@ from flac_codec_tpu.parallel.batch_decode import BatchDecoder as JaxDecoder
 from flac_codec_tpu_torch.cli import main as port_main
 from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
 from flac_codec_tpu_torch.ops import predict as tpredict
-from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS,
+from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS, int64_rows,
                                                      predict_lpc, tap_bucket)
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 
@@ -119,6 +121,64 @@ def test_predict_plain_shift_semantics_match_jax():
     order = np.array([2, 2, 1, 80], np.int32)
     np.testing.assert_array_equal(_port_predict(x, q, shift, order, 4),
                                   _jax_predict(x, q, shift, order, 4))
+
+
+@pytest.mark.parametrize("case", range(len(INT32_EDGE_CASES)),
+                         ids=[c[0] for c in INT32_EDGE_CASES])
+def test_predict_plain_at_int32_edge_matches_jax(case):
+    """A row built to leave int32 mid-row and come back, or to sit at
+    -2^31 or 2^31 - 1 without leaving (``chip_smoke.INT32_EDGE_CASES``),
+    beside two ordinary rows, in its order's tap bucket: the plain version
+    equals the JAX int64 scan and the row's built samples, and
+    ``slow_rows`` counts the row exactly when it leaves int32."""
+    name, order, _, _, kind = INT32_EDGE_CASES[case]
+    N = 512
+    x, q, shift, orders, y = (a[case:case + 1] for a in int32_edge_rows(N))
+    rng = np.random.default_rng(300 + case)
+    rows = _lpc_rows(rng, [order, 0], rng.integers(0, 16, 2), N)
+    x, q, shift, orders, y = (np.concatenate([a, b])
+                              for a, b in zip((x, q, shift, orders, y), rows))
+    taps = tap_bucket(order)
+    got = _port_predict(x, q, shift, orders, taps)
+    np.testing.assert_array_equal(got, _jax_predict(x, q, shift, orders,
+                                                    taps))
+    np.testing.assert_array_equal(got, y)
+    top, bottom = (1 << 31) - 1, -(1 << 31)
+    leaves = kind in ("up", "down", "late", "early")
+    assert ((got[0] > top) | (got[0] < bottom)).any() == leaves
+    if kind in ("top", "bottom"):
+        assert (got[0] == (top if kind == "top" else bottom)).any()
+    slow = torch.zeros(1, dtype=torch.int32)
+    predict_lpc(*(torch.from_numpy(np.ascontiguousarray(a))
+                  for a in (x, q, shift, orders)), taps, slow_rows=slow)
+    assert int(slow) == int(leaves)
+
+
+@pytest.mark.parametrize("qsum,shift,slow", [
+    ((1 << 19) - 1, 15, False), (1 << 19, 15, True), (3, 51, False),
+    (3, 52, True), (3, -1, True), (3, 64, True)])
+def test_int64_rows_rule(qsum, shift, slow):
+    """The rows the kernel runs in int64 without leaving int32: a |q| sum
+    over the taps of 2^19 or more, or a shift past 51 as the kernel reads
+    it; slow_rows counts them on the CPU as the kernel does on the card.
+    The samples match the JAX scan either way."""
+    rng = np.random.default_rng(qsum + shift)
+    x = rng.integers(-50, 50, (2, 64)).astype(np.int32)
+    x[0] = 0                    # taps this large would leave int32
+    q = np.zeros((2, 32), np.int32)
+    q[0, :2] = [qsum - qsum // 2, -(qsum // 2)]
+    q[1, 12] = 1 << 20          # beyond the taps: not counted
+    shifts = np.array([shift, 0], np.int32)
+    orders = np.array([2, 2], np.int32)
+    got = _port_predict(x, q, shifts, orders, 12)
+    np.testing.assert_array_equal(got, _jax_predict(x, q, shifts, orders, 12))
+    rule = int64_rows(torch.from_numpy(got), torch.from_numpy(q),
+                      torch.from_numpy(shifts), 12)
+    assert rule.tolist() == [slow, False]
+    counted = torch.zeros(1, dtype=torch.int32)
+    predict_lpc(*(torch.from_numpy(a) for a in (x, q, shifts, orders)), 12,
+                slow_rows=counted)
+    assert int(counted) == int(slow)
 
 
 def _gated_rows(seed, R, N, max_order, sample_bits, shifts, q_bits):
@@ -213,6 +273,8 @@ def test_predict_lpc_rejects_bad_inputs():
         predict_lpc(x, q[:, :3].contiguous(), s, s, 4)
     with pytest.raises(ValueError, match="contiguous"):
         predict_lpc(x.t(), q, s, s, 4)
+    with pytest.raises(ValueError, match="shapes do not match"):
+        predict_lpc(x, q, s, s, 4, slow_rows=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="order 33 exceeds"):
         tap_bucket(33)
 
