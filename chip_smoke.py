@@ -9,7 +9,11 @@ non-zero without one, and outside a checkout).  Phases:
    CUDA versions, the build of the CUDA kernels (``csrc/``, one ``nvcc``
    per source) and of the native host engine, started together;
 2. the encode kernels against their plain versions on the card, at
-   preset -8 shapes, bit for bit, with median times (CUDA events);
+   preset -8 shapes, bit for bit (K2 also on the symbol lists the frame
+   packer hands it, header fields included, and on a column-permuted
+   copy of them), with each kernel's device time alone (``device_ms``),
+   the time a caller waits for one call (``cuda_ms``) and, as a
+   cross-check, the kernel's own device time by ``torch.profiler``;
 3. the encode path in f64: 120 s of seeded music-like stereo 16-bit
    44.1 kHz PCM, then 20 s of 24-bit 96 kHz, through the port's
    ``BatchEncoder`` at ``Options.best()``; each stream must be
@@ -37,7 +41,7 @@ non-zero without one, and outside a checkout).  Phases:
    garbage bodies, and hand-built streams whose Rice partitions meet the
    edges of K4's 1024-bit windows (``window_edge_stream``); then against
    the native raw parse on the first 256-frame batch of the 120 s and
-   24-bit streams; median times;
+   24-bit streams; times;
 10. the device-parse decode path: the three streams through
    ``BatchDecoder(device="cuda", device_parse=True)``; the PCM must equal
    the input, K4 and ``predict_lpc`` must have launched, and no batch may
@@ -52,16 +56,19 @@ non-zero without one, and outside a checkout).  Phases:
    host parse and with the device parse, with their stage times (median
    of 3, synchronised).
 
-Any failed check raises.  The last lines are a JSON summary of the
-kernels, the card's ``nvidia-smi`` name and power limit, and
+Every time is printed beside the card's ``nvidia-smi`` name and power
+limit.  Any failed check raises.  The last lines are a JSON summary of
+the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import hashlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -119,9 +126,20 @@ def music(seconds: float, rate: int, bps: int, seed: int) -> np.ndarray:
     return np.round(out).astype(np.int32).T.reshape(-1)
 
 
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].strip()
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events), after one
-    warm-up call."""
+    """Median milliseconds of one call of ``fn`` (CUDA events), after one
+    warm-up call: what a caller waits for.  The device idles while the
+    host runs the call's Python, so for a short kernel this is mostly
+    host time; ``device_ms`` takes the host out."""
     import torch
 
     fn()
@@ -137,10 +155,219 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# the H100's L2 cache; a timed run's inputs span twice this
+L2_BYTES = 50e6
+
+
+def rotation(nbytes: int) -> int:
+    """How many copies of a call's inputs (``nbytes`` read a call) a timed
+    run rotates among, so that its working set is twice the L2 cache and
+    every launch reads its inputs from device memory."""
+    return max(2, -(-int(2 * L2_BYTES) // max(int(nbytes), 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """SM clock cycles a millisecond of ``torch.cuda._sleep``'s spin."""
+    import torch
+
+    cycles = 1 << 24
+    torch.cuda._sleep(cycles // 8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def device_ms(fn, copies: int = 1, n: int = 20, runs: int = 5) -> float:
+    """Median device milliseconds of one call of ``fn(i)``, i the input
+    copy (0 <= i < copies, in turn, carried on from run to run), with the
+    host taken out of the window.
+
+    A device spin, twice as long as the host takes to enqueue the run,
+    goes first; the start event, ``n`` calls and the end event queue up
+    behind it, so the device runs the calls back to back.  A run whose
+    enqueue outlasted its spin is thrown away and the spin doubled.  ``fn``
+    must not synchronise, and a run must stay well inside the device's
+    launch queue (a few hundred kernels on the H100): a host that waits
+    for room in a full queue looks like one that synchronises."""
+    import torch
+
+    turn = itertools.count()
+
+    def call():
+        fn(next(turn) % copies)
+
+    for _ in range(copies):
+        call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        call()
+    spin_ms = 2e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    times, late = [], 0
+    while len(times) < runs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(n):
+            call()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        end.synchronize()
+        if host_ms < spin_ms:
+            times.append(start.elapsed_time(end) / n)
+            continue
+        # the host caught up with the spin: its enqueue entered the window
+        late += 1
+        if late > 3:
+            raise AssertionError(
+                f"device_ms: enqueueing {n} calls took {host_ms:.1f} ms, "
+                f"longer than a {spin_ms:.1f} ms device spin, {late} times "
+                "(does the call synchronise?)")
+        spin_ms = 2 * host_ms
+    return statistics.median(times)
+
+
+def profiler_ms(fn, kernel: str, copies: int = 1, n: int = 10):
+    """The mean device ms of each launch of the kernel whose name holds
+    ``kernel``, by ``torch.profiler`` over ``n`` calls of ``fn(i)``; None
+    where the profiler records no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i % copies)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            t = getattr(e, "device_time_total", None)
+            total += t if t is not None else getattr(e, "cuda_time_total", 0)
+            count += e.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def kernel_times(fn, kernel: str, copies: int, plain, plain_copies=None,
+                 plain_reps: int = 5) -> dict:
+    """A kernel's ``kernel_ms`` (device alone, ``device_ms``), ``call_ms``
+    (one call, ``cuda_ms``), ``profiler_ms`` (its own device time by
+    ``torch.profiler``) and its plain version's ``plain_ms``: by
+    ``device_ms`` over 5 calls (each launches dozens of small kernels)
+    rotating among ``plain_copies`` copies, or, where the plain version
+    goes through the host (``plain_copies`` None), by ``cuda_ms``."""
+    if plain_copies is None:
+        plain_ms = cuda_ms(lambda: plain(0), reps=plain_reps)
+    else:
+        plain_ms = device_ms(plain, plain_copies, n=5)
+    return {"kernel_ms": device_ms(fn, copies),
+            "call_ms": cuda_ms(lambda: fn(0)),
+            "profiler_ms": profiler_ms(fn, kernel, copies),
+            "plain_ms": plain_ms,
+            "plain_timer": "cuda_ms" if plain_copies is None else "device_ms"}
+
+
+def times_line(name: str, t: dict, b: dict) -> str:
+    """One kernel's times, bound and card, for the log."""
+    prof = ("not measured" if t["profiler_ms"] is None
+            else f"{t['profiler_ms']:.4f} ms")
+    return (f"{name}: kernel {t['kernel_ms']:.4f} ms (device alone), call "
+            f"{t['call_ms']:.4f} ms, profiler {prof}, plain "
+            f"{t['plain_ms']:.4f} ms ({t['plain_timer']}), bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) on {card()}")
+
+
 def max_abs_err(a, b) -> int:
     from flac_codec_tpu_torch.ops.common import i32_to_u32
 
     return int((i32_to_u32(a) - i32_to_u32(b)).abs().max())
+
+
+def k2_lists(dev, pcm16: np.ndarray):
+    """K2's inputs at preset -8 from the first 256-frame batch of
+    ``pcm16``: the batch (B, 2, N) on ``dev``, the panel words P, and
+    {label: (values, widths, ends, mask)}:
+
+    * "framepack slot 0" / "slot 1": the lists the frame packer hands K2
+      for each channel slot (residual section and header fields, M =
+      4229), caught on their way into ``bitpack.pack_symbols``;
+    * "planner": slot 0's residual section alone, as
+      ``bitpack.residual_symbols`` gives it (M = 4161);
+    * "permuted": slot 0's framepack lists with their columns in one
+      seeded random order;
+    * "random": random disjoint symbols of 1-20 bits, 10 % masked off.
+    """
+    import torch
+
+    from flac_codec_tpu_torch.encode import Options
+    from flac_codec_tpu_torch.ops import bitpack, framepack
+    from flac_codec_tpu_torch.ops.common import TYPE_FIXED, TYPE_LPC
+    from flac_codec_tpu_torch.ops.encode_batch import encode_frames_plan
+
+    opts = Options.best()
+    N, B = opts.block_size, BATCH_FRAMES
+    budget = 16 + 2
+    P = framepack.subframe_panel_words(N, budget)
+    batch = torch.as_tensor(pcm16[:B * N * 2].reshape(B, N, 2)
+                            .transpose(0, 2, 1).copy(), device=dev)
+    plan = encode_frames_plan(
+        batch, bits_per_sample=16, block_size=N,
+        max_lpc_order=opts.max_lpc_order,
+        max_partition_order=opts.max_partition_order, analysis="f64")
+    lists = {}
+    pack = bitpack.pack_symbols
+
+    def catch(*args):
+        lists[f"framepack slot {len(lists)}"] = args[:4]
+        return pack(*args)
+
+    bitpack.pack_symbols = catch
+    try:
+        framepack.pack_frame_bodies(plan, N, 16, budget)
+    finally:
+        bitpack.pack_symbols = pack
+    ch = plan["channels"][0]
+    typ = ch["sub_type"].long()
+    lists["planner"], _ = bitpack.residual_symbols(
+        ch["residuals"], ch["order"], ch["po"], ch["kinds"], ch["params"],
+        ch["rice_bits"], N, torch.full((B,), 600, device=dev),
+        budget * N, live=(typ == TYPE_FIXED) | (typ == TYPE_LPC))
+    slot0 = lists["framepack slot 0"]
+    M = slot0[0].shape[1]
+    perm = torch.randperm(M, generator=torch.Generator().manual_seed(7))
+    lists["permuted"] = tuple(a[:, perm.to(dev)].contiguous() for a in slot0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    widths = torch.randint(1, 21, (B, M), device=dev, generator=gen,
+                           dtype=torch.int32)
+    ends = (torch.cumsum(widths, 1, dtype=torch.int32) + 3).to(torch.int32)
+    values = (torch.randint(0, 1 << 20, (B, M), device=dev, generator=gen)
+              & ((1 << widths.long()) - 1)).to(torch.int32)
+    mask = torch.rand((B, M), device=dev, generator=gen) > 0.1
+    lists["random"] = (values, widths, ends, mask)
+    return batch, P, lists
+
+
+def k2_bound(args, P: int) -> dict:
+    """K2's bound on one list: values, widths, ends (int32) and mask (bool)
+    read once, panels (int32) and overflow flags (bool) written once; ~6
+    integer operations per live symbol."""
+    rows, M = args[0].shape
+    return bound(rows * M * 13 + rows * P * 4 + rows, int(args[3].sum()) * 6)
+
+
+def k2_copies(args, copies: int):
+    """``copies`` copies of one K2 list, each in memory of its own."""
+    return [tuple(a.clone() for a in args) for _ in range(copies)]
 
 
 def check_kernels(dev, pcm16: np.ndarray):
@@ -149,70 +376,59 @@ def check_kernels(dev, pcm16: np.ndarray):
     import torch
 
     from flac_codec_tpu_torch.encode import Options
-    from flac_codec_tpu_torch.ops import (bitpack, decorrelate, framepack,
-                                          lpc, packpanel)
-    from flac_codec_tpu_torch.ops.common import (TYPE_FIXED, TYPE_LPC,
-                                                 u32_to_i32)
-    from flac_codec_tpu_torch.ops.encode_batch import encode_frames_plan
+    from flac_codec_tpu_torch.ops import decorrelate, framepack, lpc, packpanel
+    from flac_codec_tpu_torch.ops.common import u32_to_i32
 
     opts = Options.best()
     N, B, S = opts.block_size, BATCH_FRAMES, 2
     budget = 16 + 2
-    P = framepack.subframe_panel_words(N, budget)
     W = framepack.frame_slot_words(S, N, budget)
     gen = torch.Generator(device=dev).manual_seed(1)
     results = []
 
-    # K2 on symbol lists from the port's own planner on real audio
-    batch = torch.as_tensor(pcm16[:B * N * 2].reshape(B, N, 2)
-                            .transpose(0, 2, 1).copy(), device=dev)
-    plan = encode_frames_plan(
-        batch, bits_per_sample=16, block_size=N,
-        max_lpc_order=opts.max_lpc_order,
-        max_partition_order=opts.max_partition_order, analysis="f64")
-    ch = plan["channels"][0]
-    typ = ch["sub_type"].long()
-    symbols, _ = bitpack.residual_symbols(
-        ch["residuals"], ch["order"], ch["po"], ch["kinds"], ch["params"],
-        ch["rice_bits"], N, torch.full((B,), 600, device=dev),
-        budget * N, live=(typ == TYPE_FIXED) | (typ == TYPE_LPC))
-    # and random disjoint lists of the same shape
-    M = symbols[0].shape[1]
-    widths = torch.randint(1, 21, (B, M), device=dev, generator=gen,
-                           dtype=torch.int32)
-    ends = (torch.cumsum(widths, 1, dtype=torch.int32) + 3).to(torch.int32)
-    values = (torch.randint(0, 1 << 20, (B, M), device=dev, generator=gen)
-              & ((1 << widths.long()) - 1)).to(torch.int32)
-    mask = torch.rand((B, M), device=dev, generator=gen) > 0.1
-    k2 = {}
-    for label, args in (("planner", symbols),
-                        ("random", (values, widths, ends, mask))):
+    # K2 on the frame packer's own lists from real audio, a column-permuted
+    # copy, the planner's residual sections and random disjoint lists
+    batch, P, lists = k2_lists(dev, pcm16)
+    err = 0
+    for label, args in lists.items():
         got, ovf = packpanel.pack_symbols(*args, P)
         want, wovf = packpanel.pack_symbols_plain(*args, P)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if err or not torch.equal(ovf, wovf):
+        e = max_abs_err(got, want)
+        if e or ovf.dtype != torch.bool or not torch.equal(ovf, wovf):
             raise AssertionError(f"pack_symbols ({label}) disagrees with "
-                                 f"its plain version: max_abs_err={err}")
-        k2[label] = err
-        print(f"K2 pack_symbols {label}: rows={B} M={M} P={P} bit-exact, "
+                                 f"its plain version: max_abs_err={e}")
+        if label == "framepack slot 0":
+            slot0 = got
+        if label == "permuted" and not torch.equal(got, slot0):
+            raise AssertionError("pack_symbols: the permuted list packs to "
+                                 "other panels than framepack slot 0")
+        err = max(err, e)
+        rows, M = args[0].shape
+        print(f"K2 pack_symbols {label}: rows={rows} M={M} P={P} bit-exact, "
               f"{int(ovf.sum())} overflow rows")
-    args = symbols
-    ms = cuda_ms(lambda: packpanel.pack_symbols(*args, P))
-    plain_ms = cuda_ms(lambda: packpanel.pack_symbols_plain(*args, P))
-    live = int(args[3].sum())
-    # values, widths, ends (int32) and mask (bool) read once, panels and
-    # overflow flags written once; ~6 integer operations per live symbol
-    b2 = bound(B * M * 13 + B * P * 4 + B * 4, live * 6)
-    print(f"K2 pack_symbols: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}) "
-          "(median of 5, planner lists)")
+    for label in ("framepack slot 0", "planner", "permuted"):
+        args = lists[label]
+        b2 = k2_bound(args, P)
+        copies = k2_copies(args, rotation(b2["bound_ms"] * 1e-3
+                                          * HBM_BYTES_PER_S))
+        t2 = kernel_times(lambda i: packpanel.pack_symbols(*copies[i], P),
+                          "pack_symbols", len(copies),
+                          lambda i: packpanel.pack_symbols_plain(*copies[i],
+                                                                 P),
+                          plain_copies=len(copies))
+        print(times_line(f"K2 pack_symbols ({label}, M="
+                         f"{args[0].shape[1]}, {len(copies)} copies)",
+                         t2, b2))
+        if label == "framepack slot 0":
+            k2 = dict(t2, **b2)
+        del copies
     results.append({
         "name": "pack_symbols", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/pack_symbols.cu",
         "replaces": "flac_codec_tpu/ops/packpanel.py:377",
-        "max_abs_err": max(k2.values()), "ms": ms, "plain_ms": plain_ms,
-        **b2, "library_ms": None})
+        "max_abs_err": err, "ms": k2["kernel_ms"], **k2,
+        "library_ms": None})
 
     # float64 autocorrelation + Levinson in the host's rounding, on the
     # planner's windowed candidate rows and on near-pure sines (the
@@ -243,21 +459,22 @@ def check_kernels(dev, pcm16: np.ndarray):
     R = windowed.shape[0]
     print(f"autocorr_levinson: rows={R} N={N} M={M} "
           "bit-exact with the host encoder's numpy")
-    ms = cuda_ms(lambda: lpc.autocorr_levinson(windowed, M))
-    plain_ms = cuda_ms(lambda: lpc.autocorr_levinson_plain(windowed, M),
-                       reps=3)
     # rows read once; autocorrelation, coefficients and errors written
     # once; (M+1) lags of N multiply-adds, and ~2 M^2 Levinson flops
     b5 = bound(R * N * 8 + R * (M + 1 + M * 32 + M) * 8,
                R * ((M + 1) * N * 2 + 2 * M * M))
-    print(f"autocorr_levinson: kernel {ms:.4f} ms, plain (host numpy) "
-          f"{plain_ms:.4f} ms, bound {b5['bound_ms']:.4f} ms "
-          f"({b5['bound_by']}) (median)")
+    copies = [windowed.clone() for _ in range(rotation(R * N * 8))]
+    t5 = kernel_times(lambda i: lpc.autocorr_levinson(copies[i], M),
+                      "autocorr_levinson", len(copies),
+                      lambda i: lpc.autocorr_levinson_plain(windowed, M),
+                      plain_reps=3)
+    del copies
+    print(times_line("autocorr_levinson (plain: host numpy)", t5, b5))
     results.append({
         "name": "autocorr_levinson", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/autocorr_levinson.cu",
         "replaces": "flac_codec_tpu/ops/lpc.py:35",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b5,
+        "max_abs_err": err, "ms": t5["kernel_ms"], **t5, **b5,
         "library_ms": None})
 
     # K1 with random disjoint-bit panels: off % 32 == 0, spill words and
@@ -288,19 +505,23 @@ def check_kernels(dev, pcm16: np.ndarray):
     if int(got[1, W - 1]) == 0:
         raise AssertionError("splice_subframes: spill word not exercised")
     print(f"K1 splice_subframes: B={B} S={S} P={P} W={W} bit-exact")
-    ms = cuda_ms(lambda: packpanel.splice_subframes(panels, offs, W))
-    plain_ms = cuda_ms(lambda: packpanel.splice_subframes_plain(panels,
-                                                                offs, W))
     # panels and offsets read once, slots written once; two shifts and an
     # OR per shifted panel word
     b1 = bound(B * S * P * 4 + B * S * 4 + B * W * 4, B * S * (P + 1) * 3)
-    print(f"K1 splice_subframes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) (median of 5)")
+    copies = [(panels.clone(), offs.clone())
+              for _ in range(rotation(B * S * (P + 1) * 4))]
+    t1 = kernel_times(
+        lambda i: packpanel.splice_subframes(*copies[i], W),
+        "splice_kernel", len(copies),
+        lambda i: packpanel.splice_subframes_plain(*copies[i], W),
+        plain_copies=len(copies))
+    del copies
+    print(times_line("K1 splice_subframes", t1, b1))
     results.append({
         "name": "splice_subframes", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/splice.cu",
         "replaces": "flac_codec_tpu/ops/packpanel.py:454",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b1,
+        "max_abs_err": err, "ms": t1["kernel_ms"], **t1, **b1,
         "library_ms": None})
     return results
 
@@ -536,29 +757,37 @@ def check_predict(dev, stream16: bytes):
     if slow_by_set["int32 edge"] == 0:
         raise AssertionError("predict_lpc: no row of the int32 edge set took "
                              "the int64 path")
-    ms = cuda_ms(lambda: predict_lpc(*real, taps))
-    plain_ms = cuda_ms(lambda: predict_batch_plain(*real, taps), reps=3)
-    mhz = sm_clock_under_load(lambda: predict_lpc(*real, taps), ms)
     R = n * C
     order = raw["order"].reshape(-1).astype(np.int64)
     # residuals, taps, shift and order read once, int64 samples written
     # once; one multiply and one add per tap of each predicted sample
     b3 = bound(R * N * 4 + R * 32 * 4 + R * 8 + R * N * 8,
                int((np.maximum(N - order, 0) * order * 2).sum()))
-    print(f"K3 predict_lpc: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b3['bound_ms']:.4f} ms ({b3['bound_by']}) (median, "
-          f"R={R} N={N} taps={taps}); SM clock under load {mhz:.0f} MHz, "
+    copies = [[a.clone() for a in real]
+              for _ in range(rotation(R * N * 4 + R * 32 * 4 + R * 8))]
+    t3 = kernel_times(lambda i: predict_lpc(*copies[i], taps), "predict_lpc",
+                      len(copies),
+                      lambda i: predict_batch_plain(*real, taps),
+                      plain_reps=3)
+    del copies
+    ms = t3["kernel_ms"]
+    mhz = sm_clock_under_load(lambda: predict_lpc(*real, taps), ms)
+    print(times_line(f"K3 predict_lpc (R={R} N={N} taps={taps}; plain: "
+                     "host loop)", t3, b3)
+          + f"; SM clock under load {mhz:.0f} MHz, "
           f"{ms * 1e-3 * mhz * 1e6 / N:.1f} cycles a step")
     for label, args, t in sets[1:]:
-        tms = cuda_ms(lambda: predict_lpc(*args, t))
-        print(f"K3 predict_lpc {label}: kernel {tms:.4f} ms, "
-              f"{tms * 1e-3 * mhz * 1e6 / N:.1f} cycles a step (median, "
-              f"R={args[0].shape[0]} N={N})")
+        copies = [[a.clone() for a in args]
+                  for _ in range(rotation(args[0].numel() * 4))]
+        tms = device_ms(lambda i: predict_lpc(*copies[i], t), len(copies))
+        del copies
+        print(f"K3 predict_lpc {label}: kernel {tms:.4f} ms (device alone), "
+              f"{tms * 1e-3 * mhz * 1e6 / N:.1f} cycles a step (R="
+              f"{args[0].shape[0]} N={N}) on {card()}")
     return {"name": "predict_lpc", "route": "cuda",
             "source": "flac_codec_tpu_torch/csrc/predict_lpc.cu",
             "replaces": "flac_codec_tpu/ops/predict_pallas.py:99",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b3,
-            "library_ms": None}
+            "max_abs_err": err, "ms": ms, **t3, **b3, "library_ms": None}
 
 
 def parse_inputs(data: bytes, dev, frames=BATCH_FRAMES, whole=True):
@@ -944,8 +1173,6 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
               "to the native raw parse, array for array")
     args, raw = full["120 s 16-bit"]
     got = k4_vs_plain("120 s 16-bit", args)
-    ms = cuda_ms(lambda: parse_frame_bodies(*args))
-    plain_ms = cuda_ms(lambda: parse_frame_bodies_plain(*args), reps=1)
     B, C, N = got["buf"].shape
     # body bytes (and offsets, lengths, assignments) read once; samples,
     # parameters and ok written once; ~10 operations per decoded symbol
@@ -953,15 +1180,19 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
     body = int(args[2].sum()) // 8
     b4 = bound(body + B * 16 + B * C * N * 4 + B * C * 35 * 4 + B,
                10 * (B * C * N + int(raw["order"].astype(np.int64).sum())))
-    print(f"K4 parse_frame_bodies: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}) (median; "
-          f"B={B} C={C} N={N}, {body} body bytes); the earlier "
-          f"one-thread-per-body design: {K4_ONE_THREAD_MS} ms (recorded on "
-          "another machine)")
+    copies = [[args[0].clone(), *args[1:]] for _ in range(rotation(body))]
+    t4 = kernel_times(lambda i: parse_frame_bodies(*copies[i]),
+                      "parse_frames", len(copies),
+                      lambda i: parse_frame_bodies_plain(*args), plain_reps=1)
+    del copies
+    print(times_line(f"K4 parse_frame_bodies (B={B} C={C} N={N}, {body} body "
+                     "bytes; plain: host loop)", t4, b4)
+          + f"; the earlier one-thread-per-body design: {K4_ONE_THREAD_MS} "
+          "ms (recorded on another machine)")
     return {"name": "parse_frame_bodies", "route": "cuda",
             "source": "flac_codec_tpu_torch/csrc/parse_frames.cu",
             "replaces": "flac_codec_tpu/ops/framescan.py:117",
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b4,
+            "max_abs_err": 0, "ms": t4["kernel_ms"], **t4, **b4,
             "library_ms": None}
 
 
@@ -1097,13 +1328,8 @@ def main() -> int:
     open(trace_path, "w").close()
 
     # ---- 1. device and environment ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0].strip()
     dev = torch.device("cuda", 0)
-    print(f"card: {card}")
+    print(f"card: {card()}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -1221,7 +1447,7 @@ def main() -> int:
         med = statistics.median(secs)
         print(f"encode {analysis}: {mb / med:.2f} MB/s of PCM "
               f"(median of 3: {med:.3f} s for {mb:.2f} MB; runs "
-              f"{', '.join(f'{s:.3f}' for s in secs)}) on {card}")
+              f"{', '.join(f'{s:.3f}' for s in secs)}) on {card()}")
     stage_names = {False: ("decode.parse", "decode.reconstruct"),
                    True: ("decode.scan", "decode.upload",
                           "decode.parse_device", "decode.reconstruct")}
@@ -1245,12 +1471,13 @@ def main() -> int:
                   f"{', '.join(f'{r[0]:.3f}' for r in runs)}; in the median "
                   "run " + ", ".join(f"{k} {v:.1f} ms"
                                      for k, v in stages.items())
-                  + f") on {card}")
+                  + f") on {card()}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",
+            "plain_timer", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
-    print(card)
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

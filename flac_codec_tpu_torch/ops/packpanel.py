@@ -48,7 +48,8 @@ def pack_symbols(values: torch.Tensor, widths: torch.Tensor,
     mask: bool, symbols to place.  Bit fields of live symbols must be
     disjoint, which makes OR and add the same.  A live symbol that would
     land outside the panel, or is wider than 32 bits, is dropped and
-    flags its row.
+    flags its row.  On the card this is one launch, which also writes the
+    (rows,) bool overflow flags.
     """
     dev = kernels.check_inputs(
         "pack_symbols",
@@ -66,13 +67,13 @@ def pack_symbols(values: torch.Tensor, widths: torch.Tensor,
         return pack_symbols_plain(values, widths, ends, mask, P)
     rows, M = values.shape
     out = torch.empty((rows, P), dtype=torch.int32, device=dev)
-    ovf = torch.empty(rows, dtype=torch.int32, device=dev)
+    ovf = torch.empty(rows, dtype=torch.bool, device=dev)
     if rows:
         kernels.launch("pack_symbols", kernels.library().flac_pack_symbols,
                        values.data_ptr(), widths.data_ptr(), ends.data_ptr(),
                        mask.data_ptr(), out.data_ptr(), ovf.data_ptr(), rows,
                        M, P, device=dev)
-    return out, ovf != 0
+    return out, ovf
 
 
 def pack_symbols_plain(values: torch.Tensor, widths: torch.Tensor,

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (WINDOW_EDGE_CASES, int32_edge_rows, parses_as_built,
-                        window_edge_inputs)
+from chip_smoke import (WINDOW_EDGE_CASES, int32_edge_rows, k2_lists, music,
+                        parses_as_built, window_edge_inputs)
 from flac_codec_tpu_torch import kernels, native
 from flac_codec_tpu_torch.bitio import BitWriter
 from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
@@ -70,6 +70,107 @@ def test_pack_symbols_kernel_matches_plain(dev, rows, M, P, max_width):
     assert torch.equal(ovf, wovf)
     if P == 64:
         assert ovf.any()
+
+
+def _k2_matches_plain(args, P):
+    """K2 against its plain version: panels, flags and their dtype, and
+    exactly one launch."""
+    n0 = kernels.LAUNCHES["pack_symbols"]
+    got, ovf = tpp.pack_symbols(*args, P)
+    want, wovf = tpp.pack_symbols_plain(*args, P)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack_symbols"] == n0 + 1
+    assert ovf.dtype == torch.bool and ovf.shape == (args[0].shape[0],)
+    assert torch.equal(got, want)
+    assert torch.equal(ovf, wovf)
+    return got, ovf
+
+
+def _k2_case(name, gen, dev):
+    """(values, widths, ends, mask), P for one of the edge lists."""
+    if name == "32-bit symbols":
+        values = torch.randint(0, 1 << 32, (16, 2001), generator=gen,
+                               device=dev)
+        ends = torch.arange(1, 2002, device=dev, dtype=torch.int32) * 32 + 7
+        return (u32_to_i32(values),
+                torch.full((16, 2001), 32, dtype=torch.int32, device=dev),
+                ends.expand(16, 2001).contiguous(),
+                torch.ones((16, 2001), dtype=torch.bool, device=dev)), 2100
+    if name == "1-bit runs":
+        v, w, e, m = _symbols(gen, dev, 32, 4229, 1, density=0.8)
+        return (v, w, e, m), 160
+    if name == "M % 4 = 1, one row":
+        return _symbols(gen, dev, 1, 4229, 20), 2688
+    if name == "M % 4 = 3, odd rows":
+        return _symbols(gen, dev, 7, 1027, 13), 512
+    if name == "all-masked rows":
+        v, w, e, m = _symbols(gen, dev, 9, 4229, 20)
+        m[::2] = False
+        return (v, w, e, m), 2688
+    # overflow rows: symbols past the panel, wider than 32 bits, or
+    # starting before bit 0
+    v, w, e, m = _symbols(gen, dev, 12, 4229, 20)
+    w[1, 100] = 33
+    w[2, 0], e[2, 0] = 9, 3
+    e[3, 50:] += 1 << 20
+    m[1, 100] = m[2, 0] = m[3, 60] = True
+    return (v, w, e, m), 2688
+
+
+K2_EDGE_CASES = ("32-bit symbols", "1-bit runs", "M % 4 = 1, one row",
+                 "M % 4 = 3, odd rows", "all-masked rows", "overflow rows")
+
+
+@pytest.mark.parametrize("name", K2_EDGE_CASES)
+def test_pack_symbols_kernel_edge_lists(dev, name):
+    """32-bit symbols end to end, 1-bit symbols many to a word, rows whose
+    length is no multiple of 4 (no row 16-byte aligned), one row, rows
+    with every symbol masked off, and rows that overflow, each in one
+    launch with bool flags; a column-permuted copy packs the same."""
+    gen = torch.Generator(device=dev).manual_seed(K2_EDGE_CASES.index(name))
+    args, P = _k2_case(name, gen, dev)
+    got, ovf = _k2_matches_plain(args, P)
+    perm = torch.randperm(args[0].shape[1], device=dev, generator=gen)
+    got2, ovf2 = _k2_matches_plain(
+        [a[:, perm].contiguous() for a in args], P)
+    assert torch.equal(got2, got) and torch.equal(ovf2, ovf)
+    if name == "overflow rows":
+        assert ovf[1:4].all() and not ovf[4:].any()
+    if name == "all-masked rows":
+        assert not got[::2].any()
+
+
+def test_pack_symbols_kernel_framepack_lists(dev):
+    """The lists the frame packer hands K2 at preset -8 (residual sections
+    and header fields, M = 4229), the planner's residual sections, a
+    column-permuted copy (same panels as slot 0) and random lists."""
+    _, P, lists = k2_lists(dev, music(24, 44100, 16, seed=16))
+    assert lists["framepack slot 0"][0].shape == (256, 4229)
+    panels = {name: _k2_matches_plain(args, P)[0]
+              for name, args in lists.items()}
+    assert torch.equal(panels["permuted"], panels["framepack slot 0"])
+    assert panels["framepack slot 0"].any()
+
+
+def test_pack_symbols_is_one_kernel(dev):
+    """One call is one kernel on the card (the profiler's count, where it
+    records device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = _symbols(gen, dev, 256, 4229, 20)
+    tpp.pack_symbols(*args, 2688)
+    torch.cuda.synchronize()
+    n0 = kernels.LAUNCHES["pack_symbols"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tpp.pack_symbols(*args, 2688)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack_symbols"] == n0 + 1
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if device:
+        assert len(device) == 1 and "pack_symbols" in device[0].name
 
 
 @pytest.mark.parametrize("B,S,P,W", [

@@ -48,9 +48,11 @@ def _symbols(seed, rows, n, mean_width=9.5):
 
 
 def _port_pack(vals, widths, ends, mask, P):
-    return tpp.pack_symbols(_i32(vals), torch.as_tensor(widths, dtype=torch.int32),
-                            torch.as_tensor(ends, dtype=torch.int32),
-                            torch.as_tensor(mask), P)
+    c = np.ascontiguousarray
+    return tpp.pack_symbols(_i32(vals),
+                            torch.as_tensor(c(widths), dtype=torch.int32),
+                            torch.as_tensor(c(ends), dtype=torch.int32),
+                            torch.as_tensor(c(mask)), P)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -70,6 +72,25 @@ def test_pack_symbols_matches_chunkmerge(seed):
     assert ok.any()
     np.testing.assert_array_equal(_u32(got)[ok], np.asarray(want)[ok])
     np.testing.assert_array_equal(_u32(got)[ok], ref[ok])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_symbols_permuted_matches_chunkmerge(seed):
+    """A column-permuted symbol list packs to the panels of the list in
+    order, and to the JAX package's chunkmerge panels: the contract holds
+    for symbols in any order.  The flags are bool."""
+    N, P = 512, 512
+    sym = _symbols(seed, 6, N)
+    perm = np.random.default_rng(seed + 50).permutation(N)
+    got, ovf = _port_pack(*sym, P)
+    pgot, povf = _port_pack(*(a[:, perm] for a in sym), P)
+    assert ovf.dtype == povf.dtype == torch.bool and not povf.any()
+    np.testing.assert_array_equal(_u32(pgot), _u32(got))
+    want, jovf = jax.jit(lambda *a: jpp.chunkmerge_panels(*a, P))(
+        *[jnp.asarray(a) for a in sym])
+    ok = ~np.asarray(jovf)
+    assert ok.any()
+    np.testing.assert_array_equal(_u32(pgot)[ok], np.asarray(want)[ok])
 
 
 def test_pack_symbols_has_no_chunk_span_cap():
@@ -113,6 +134,27 @@ def test_pack_symbols_fields_match_fields_window():
     assert not ovf.any()
     np.testing.assert_array_equal(_u32(got)[:, :64], want)
     assert not _u32(got)[:, 64:].any()
+
+
+def test_pack_symbols_permuted_fields_match_fields_window():
+    """Header fields in reverse and in a random order pack to the JAX
+    package's one-hot field window."""
+    rng = np.random.default_rng(5)
+    rows, F = 5, 40
+    widths = rng.integers(1, 33, (rows, F)).astype(np.int64)
+    ends = np.cumsum(widths, axis=1) + 3
+    vals = rng.integers(0, 1 << 32, (rows, F), dtype=np.uint64).astype(
+        np.int64) & ((1 << widths) - 1)
+    mask = (rng.random((rows, F)) > 0.2) & (ends <= 63 * 32)
+    want = np.asarray(jpp.pack_fields_window(
+        jnp.asarray(vals.astype(np.uint32)), jnp.asarray(widths),
+        jnp.asarray(ends), jnp.asarray(mask)))
+    for perm in (np.arange(F)[::-1], rng.permutation(F)):
+        got, ovf = _port_pack(*(a[:, perm] for a in (vals, widths, ends,
+                                                      mask)), 128)
+        assert not ovf.any()
+        np.testing.assert_array_equal(_u32(got)[:, :64], want)
+        assert not _u32(got)[:, 64:].any()
 
 
 def test_pack_symbols_flags_outside_and_wide():
@@ -279,11 +321,9 @@ def _pcm(kind, C, bps, n, B, rng):
             + rng.integers(-(lim >> 9), lim >> 9, (B, C, n))).astype(np.int64)
 
 
-@pytest.mark.parametrize("case", sorted(_PACK_CASES))
-def test_pack_frame_bodies_matches_jax_on_same_plan(case):
-    """The same JAX plan, handed over with plan_from_numpy, packs to the
-    same slots, body lengths and CRC inner products wherever neither
-    package falls back; the port falls back on a subset of frames."""
+def _check_pack_frame_bodies(case):
+    """The port's pack_frame_bodies against the JAX package's on the same
+    JAX plan (see test_pack_frame_bodies_matches_jax_on_same_plan)."""
     C, bps, n, kind = _PACK_CASES[case]
     rng = np.random.default_rng(12)
     pcm = _pcm(kind, C, bps, n, 2 if kind == "burst" else 4, rng)
@@ -316,6 +356,38 @@ def test_pack_frame_bodies_matches_jax_on_same_plan(case):
         assert keep.all()
     if kind == "burst":
         assert jfb.all() and not tfb.any()
+
+
+@pytest.mark.parametrize("case", sorted(_PACK_CASES))
+def test_pack_frame_bodies_matches_jax_on_same_plan(case):
+    """The same JAX plan, handed over with plan_from_numpy, packs to the
+    same slots, body lengths and CRC inner products wherever neither
+    package falls back; the port falls back on a subset of frames."""
+    _check_pack_frame_bodies(case)
+
+
+@pytest.mark.parametrize("case", ["stereo16", "stereo32_escapes"])
+def test_pack_frame_bodies_with_permuted_symbols_matches_jax(case,
+                                                             monkeypatch):
+    """Every symbol list the frame packer hands pack_symbols (residual
+    section and header fields, the fields after the section whose bits
+    they precede), packed with its columns in a random order, still gives
+    the JAX package's slots."""
+    from flac_codec_tpu_torch.ops import bitpack as tbp
+
+    pack = tbp.pack_symbols
+    rng = np.random.default_rng(21)
+    calls = []
+
+    def permuted(values, widths, ends, mask, P):
+        perm = torch.as_tensor(rng.permutation(values.shape[1]))
+        calls.append(values.shape)
+        return pack(*(a[:, perm].contiguous()
+                      for a in (values, widths, ends, mask)), P)
+
+    monkeypatch.setattr(tbp, "pack_symbols", permuted)
+    _check_pack_frame_bodies(case)
+    assert len(calls) == 2
 
 
 def test_plan_from_numpy_roundtrip():

@@ -7,7 +7,9 @@ checkout at ``--root`` (default: this one), so that two trees can be
 compared in one run on one card: seeded rows (``chip_smoke.lpc_rows``) in
 every tap bucket, and the int32 boundary rows of
 ``chip_smoke.INT32_EDGE_CASES`` among seeded rows at tap bucket 32.  Each
-time is the median of 5 CUDA-event runs after a warm-up; the SM clock is
+time is the kernel's device time alone (``chip_smoke.device_ms``: the
+median of 5 runs of back-to-back launches queued behind a device spin,
+rotating among copies of the inputs that span twice the L2); the SM clock is
 sampled by ``nvidia-smi`` while the bucket-12 set runs back to back, and
 each time is also given in cycles a step (ms x clock / N).  Prints one
 JSON line per set and exits non-zero without a GPU.
@@ -19,7 +21,6 @@ import argparse
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -47,10 +48,6 @@ def main() -> int:
     from flac_codec_tpu_torch.ops.predict_pallas import predict_lpc
 
     kernels.library()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     R, N = 512, 4096
     rng = np.random.default_rng(6)
@@ -70,11 +67,14 @@ def main() -> int:
     mhz = cs.sm_clock_under_load(lambda: predict_lpc(*a12, 12),
                                  cs.cuda_ms(lambda: predict_lpc(*a12, 12)))
     for name, a, t in sets:
-        ms = cs.cuda_ms(lambda: predict_lpc(*a, t))
+        copies = [[x.clone() for x in a]
+                  for _ in range(cs.rotation(a[0].numel() * 4))]
+        ms = cs.device_ms(lambda i: predict_lpc(*copies[i], t), len(copies))
+        del copies
         print(json.dumps({"tree": label, "set": name, "R": R, "N": N,
                           "taps": t, "ms": ms, "sm_mhz": mhz,
                           "cycles_per_step": ms * 1e-3 * mhz * 1e6 / N,
-                          "card": card}))
+                          "card": cs.card()}))
     return 0
 
 
