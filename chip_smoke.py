@@ -11,9 +11,14 @@ non-zero without one, and outside a checkout).  Phases:
 2. the encode kernels against their plain versions on the card, at
    preset -8 shapes, bit for bit (K2 also on the symbol lists the frame
    packer hands it, header fields included, and on a column-permuted
-   copy of them), with each kernel's device time alone (``device_ms``),
-   the time a caller waits for one call (``cuda_ms``) and, as a
-   cross-check, the kernel's own device time by ``torch.profiler``;
+   copy of them; the autocorrelation also at order 32; K1 also on
+   panels whose set bits overlap and on negative and past-the-slot
+   offsets, and timed at the 8-channel 24-bit block-16384 slot), with
+   each kernel's device time alone (``device_ms``), the time a caller
+   waits for one call (``cuda_ms``) and, as a cross-check, the kernel's
+   own device time by ``torch.profiler``, beside its bounds (bytes,
+   operations, and for the autocorrelation the shared memory its design
+   moves at the SM clock sampled under load);
 3. the encode path in f64: 120 s of seeded music-like stereo 16-bit
    44.1 kHz PCM, then 20 s of 24-bit 96 kHz, through the port's
    ``BatchEncoder`` at ``Options.best()``; each stream must be
@@ -48,7 +53,7 @@ non-zero without one, and outside a checkout).  Phases:
    fall back to the host parse but the one holding the short tail;
 11. the conformance corpus through the device-parse path (``pcm_md5``);
 12. a slot past one block's shared memory: 1 s of 8-channel 24-bit
-   96 kHz at block 16384 (a 420 KB K1 slot) encoded on the card, f64
+   96 kHz at block 16384 (a 420 KB frame slot) encoded on the card, f64
    byte-identical to ``FlacSampleWriter`` and decoded back losslessly
    through both parse paths; and K2 against its plain version on
    60,000-word panels;
@@ -97,7 +102,20 @@ K4_ONE_THREAD_MS = 1.5677
 def bound(nbytes: float, ops: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "operations_ms": t_ops * 1e3,
+            "smem_ms": None}
+
+
+# the H100's shared memory: 128 bytes a clock on each of its 132 SMs
+SM_COUNT = 132
+SMEM_BYTES_PER_CLOCK = 128
+
+
+def smem_ms(nbytes: float, mhz: float) -> float:
+    """The least time the card's shared memory takes to serve ``nbytes``
+    at the SM clock ``mhz``: a kernel's second bound, set by its design."""
+    return nbytes / (SM_COUNT * SMEM_BYTES_PER_CLOCK * mhz * 1e6) * 1e3
 
 
 def music(seconds: float, rate: int, bps: int, seed: int) -> np.ndarray:
@@ -278,13 +296,17 @@ def kernel_times(fn, kernel: str, copies: int, plain, plain_copies=None,
 
 
 def times_line(name: str, t: dict, b: dict) -> str:
-    """One kernel's times, bound and card, for the log."""
+    """One kernel's times, bounds and card, for the log."""
     prof = ("not measured" if t["profiler_ms"] is None
             else f"{t['profiler_ms']:.4f} ms")
+    smem = ("" if b.get("smem_ms") is None
+            else f", shared memory {b['smem_ms']:.4f} ms")
     return (f"{name}: kernel {t['kernel_ms']:.4f} ms (device alone), call "
             f"{t['call_ms']:.4f} ms, profiler {prof}, plain "
             f"{t['plain_ms']:.4f} ms ({t['plain_timer']}), bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) on {card()}")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+            f"{b['bytes_ms']:.4f} ms, operations {b['operations_ms']:.4f} ms"
+            f"{smem}) on {card()}")
 
 
 def max_abs_err(a, b) -> int:
@@ -370,20 +392,126 @@ def k2_copies(args, copies: int):
     return [tuple(a.clone() for a in args) for _ in range(copies)]
 
 
+def bit_equal(got, want) -> bool:
+    """Tensors equal bit for bit; NaNs (orders past a zero error) may
+    differ in payload."""
+    import torch
+
+    return all(torch.equal(g.isnan(), w.isnan())
+               and torch.equal(g.nan_to_num().view(torch.int64),
+                               w.nan_to_num().view(torch.int64))
+               for g, w in zip(got, want))
+
+
+def autocorr_rows(dev, batch):
+    """The autocorrelation's rows at preset -8: the planner's 4 B
+    decorrelation candidates of ``batch`` (B, 2, N) and 64 near-pure sines
+    (the ill-conditioned case where any other summation order flips bits),
+    Tukey-windowed: (4 B + 64, N) float64 on ``dev``."""
+    import torch
+
+    from flac_codec_tpu_torch.ops import decorrelate, lpc
+
+    B, _, N = batch.shape
+    t = np.arange(N)
+    sines = np.stack([(1 << 21) * np.sin(t * f) + rng_noise
+                      for f, rng_noise in zip(
+                          np.linspace(0.003, 0.09, 64),
+                          np.random.default_rng(3).integers(-99, 99, (64, N)))])
+    rows = torch.cat([decorrelate.candidates(batch).reshape(4 * B, N)
+                      .double(), torch.as_tensor(sines, device=dev)])
+    return (rows * lpc.window_array(("tukey", 0.5), N, torch.float64,
+                                    dev)).contiguous()
+
+
+def autocorr_bound(R: int, N: int, M: int) -> dict:
+    """The autocorrelation's bound: rows read once; autocorrelation,
+    coefficients and errors written once; (M+1) lags of N multiply-adds,
+    and ~2 M^2 Levinson flops a row."""
+    return bound(R * N * 8 + R * (M + 1 + M * 32 + M) * 8,
+                 R * ((M + 1) * N * 2 + 2 * M * M))
+
+
+def autocorr_smem_bytes(R: int, N: int, M: int) -> int:
+    """Shared-memory bytes csrc/autocorr_levinson.cu moves: each row
+    written into its ring once, and at each of a row's N / 32 chain steps,
+    each of its threads (8 a group of G lags) reads its y window (G + 4
+    doubles, rounded up to pairs) and, past one group, its 4 x values."""
+    groups, G = ((1, 13) if M + 1 <= 13 else (2, 14) if M + 1 <= 28
+                 else (4, 10))
+    per_step = ((G + 4) & ~1) + (4 if groups > 1 else 0)
+    return R * N * 8 + R * (N // 32) * 8 * groups * per_step * 8
+
+
+def k1_frames(dev, lens, P: int, seed: int):
+    """K1 inputs: (B, S) panels of ``lens[b, s]`` random bits each (the
+    rest of the panel zero) at their frame's cumulative bit offsets:
+    (panels (B, S, P) int32, offsets (B, S) int32) on ``dev``."""
+    import torch
+
+    from flac_codec_tpu_torch.ops.common import u32_to_i32
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S = lens.shape
+    words = torch.randint(0, 1 << 32, (B, S, P), generator=gen, device=dev)
+    keep = (torch.as_tensor(lens, device=dev)[:, :, None]
+            - 32 * torch.arange(P, device=dev)).clamp(0, 32)
+    words &= ((1 << keep) - 1) << (32 - keep)      # the top `keep` bits
+    offs = np.concatenate([np.zeros((B, 1), np.int64),
+                           np.cumsum(lens, 1)[:, :-1]], 1)
+    return (u32_to_i32(words).contiguous(),
+            torch.as_tensor(offs, dtype=torch.int32, device=dev))
+
+
+def k1_junk(dev, B: int, S: int, P: int, W: int, seed: int):
+    """K1 inputs the encoder never makes: random full panels (their set
+    bits overlap wherever two meet, so the slot word is their wrapping
+    sum) at offsets from 40 words before the slot to 5 words past it, a
+    few pinned: word-aligned, a spill on the slot's last word, wholly
+    before and wholly past the slot."""
+    import torch
+
+    from flac_codec_tpu_torch.ops.common import u32_to_i32
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    words = torch.randint(0, 1 << 32, (B, S, P), generator=gen, device=dev)
+    offs = torch.randint(-40 * 32, (W + 5) * 32, (B, S), generator=gen,
+                         device=dev, dtype=torch.int32)
+    offs[0, 0] = 0
+    offs[0, -1] = 32 * 5
+    offs[1 % B, 0] = (W - P - 1) * 32 + 17
+    offs[2 % B, -1] = -(P + 1) * 32 - 3
+    offs[3 % B, 0] = W * 32
+    offs[-1, -1] = -70
+    return u32_to_i32(words).contiguous(), offs
+
+
+def k1_bound(offs, P: int, W: int) -> dict:
+    """K1's bound on these offsets: the shifted panel words that land in
+    the slot (word i of panel s at word off_s // 32 + i, 0 <= i <= P) read
+    once, offsets read once, slots written once; two shifts and an add a
+    word."""
+    wo = offs.long() >> 5
+    lo, hi = (-wo).clamp(0, P + 1), (W - wo).clamp(0, P + 1)
+    words = int((hi - lo).clamp(min=0).sum())
+    B, S = offs.shape
+    return bound(words * 4 + B * S * 4 + B * W * 4, words * 3)
+
+
 def check_kernels(dev, pcm16: np.ndarray):
     """Phase 2: K1, K2 and the autocorrelation against their plain
-    versions at preset -8."""
+    versions at preset -8 (the autocorrelation also at order 32; K1 also
+    on overlapping bits and junk offsets, and timed at the 8-channel
+    24-bit block-16384 slot)."""
     import torch
 
     from flac_codec_tpu_torch.encode import Options
-    from flac_codec_tpu_torch.ops import decorrelate, framepack, lpc, packpanel
-    from flac_codec_tpu_torch.ops.common import u32_to_i32
+    from flac_codec_tpu_torch.ops import framepack, lpc, packpanel
 
     opts = Options.best()
     N, B, S = opts.block_size, BATCH_FRAMES, 2
     budget = 16 + 2
     W = framepack.frame_slot_words(S, N, budget)
-    gen = torch.Generator(device=dev).manual_seed(1)
     results = []
 
     # K2 on the frame packer's own lists from real audio, a column-permuted
@@ -431,45 +559,43 @@ def check_kernels(dev, pcm16: np.ndarray):
         "library_ms": None})
 
     # float64 autocorrelation + Levinson in the host's rounding, on the
-    # planner's windowed candidate rows and on near-pure sines (the
-    # ill-conditioned case where any other summation order flips bits)
-    t = np.arange(N)
-    sines = np.stack([(1 << 21) * np.sin(t * f) + rng_noise
-                      for f, rng_noise in zip(
-                          np.linspace(0.003, 0.09, 64),
-                          np.random.default_rng(3).integers(-99, 99, (64, N)))])
-    rows = torch.cat([decorrelate.candidates(batch).reshape(4 * B, N)
-                      .double(), torch.as_tensor(sines, device=dev)])
-    windowed = (rows * lpc.window_array(("tukey", 0.5), N, torch.float64,
-                                        dev)).contiguous()
-    M = opts.max_lpc_order
-    got = lpc.autocorr_levinson(windowed, M)
-    want = lpc.autocorr_levinson_plain(windowed, M)
-    torch.cuda.synchronize()
-    err = max(float((g - w).nan_to_num().abs().max())
-              for g, w in zip(got, want))
-    # bit for bit; NaNs (orders past a zero error) may differ in payload
-    same = all(torch.equal(g.isnan(), w.isnan())
-               and torch.equal(g.nan_to_num().view(torch.int64),
-                               w.nan_to_num().view(torch.int64))
-               for g, w in zip(got, want))
-    if not same:
-        raise AssertionError(f"autocorr_levinson disagrees with the host's "
-                             f"numpy rounding: max_abs_err={err}")
-    R = windowed.shape[0]
-    print(f"autocorr_levinson: rows={R} N={N} M={M} "
-          "bit-exact with the host encoder's numpy")
-    # rows read once; autocorrelation, coefficients and errors written
-    # once; (M+1) lags of N multiply-adds, and ~2 M^2 Levinson flops
-    b5 = bound(R * N * 8 + R * (M + 1 + M * 32 + M) * 8,
-               R * ((M + 1) * N * 2 + 2 * M * M))
+    # planner's windowed candidate rows and on near-pure sines, at the
+    # preset's order and at the largest
+    windowed = autocorr_rows(dev, batch)
+    R, M = windowed.shape[0], opts.max_lpc_order
+    err = 0.0
+    for m in (M, lpc.MAX_ORDER):
+        got = lpc.autocorr_levinson(windowed, m)
+        want = lpc.autocorr_levinson_plain(windowed, m)
+        torch.cuda.synchronize()
+        e = max(float((g - w).nan_to_num().abs().max())
+                for g, w in zip(got, want))
+        if not bit_equal(got, want):
+            raise AssertionError(f"autocorr_levinson (M={m}) disagrees with "
+                                 f"the host's numpy rounding: max_abs_err={e}")
+        err = max(err, e)
+        print(f"autocorr_levinson: rows={R} N={N} M={m} "
+              "bit-exact with the host encoder's numpy")
     copies = [windowed.clone() for _ in range(rotation(R * N * 8))]
     t5 = kernel_times(lambda i: lpc.autocorr_levinson(copies[i], M),
                       "autocorr_levinson", len(copies),
                       lambda i: lpc.autocorr_levinson_plain(windowed, M),
                       plain_reps=3)
+    mhz = sm_clock_under_load(lambda: lpc.autocorr_levinson(windowed, M),
+                              t5["kernel_ms"])
+    b5 = autocorr_bound(R, N, M)
+    b5["smem_ms"] = smem_ms(autocorr_smem_bytes(R, N, M), mhz)
+    print(times_line(f"autocorr_levinson (M={M}; plain: host numpy)", t5, b5)
+          + f"; SM clock under load {mhz:.0f} MHz")
+    m = lpc.MAX_ORDER
+    t32 = device_ms(lambda i: lpc.autocorr_levinson(copies[i], m),
+                    len(copies))
+    b32 = autocorr_bound(R, N, m)
+    print(f"autocorr_levinson (M={m}): kernel {t32:.4f} ms (device alone), "
+          f"bound {b32['bound_ms']:.4f} ms ({b32['bound_by']}), shared "
+          f"memory {smem_ms(autocorr_smem_bytes(R, N, m), mhz):.4f} ms at "
+          f"{mhz:.0f} MHz on {card()}")
     del copies
-    print(times_line("autocorr_levinson (plain: host numpy)", t5, b5))
     results.append({
         "name": "autocorr_levinson", "route": "cuda",
         "source": "flac_codec_tpu_torch/csrc/autocorr_levinson.cu",
@@ -486,15 +612,7 @@ def check_kernels(dev, pcm16: np.ndarray):
     lens[1, 1] = P * 32                        # ... full: spills into W - 1
     lens[2, 0] = (W - P - 1) * 32              # aligned, right at the edge
     lens[2, 1] = P * 32
-    bits = torch.rand((B, S, P * 32), device=dev, generator=gen) < 0.5
-    pos = torch.arange(P * 32, device=dev)
-    bits &= pos < torch.as_tensor(lens, device=dev)[:, :, None]
-    weights = 1 << torch.arange(31, -1, -1, device=dev)
-    words = (bits.view(B, S, P, 32).long() * weights).sum(-1)
-    panels = u32_to_i32(words).contiguous()
-    offs = torch.as_tensor(np.concatenate(
-        [np.zeros((B, 1), np.int64), np.cumsum(lens, 1)[:, :-1]], 1),
-        dtype=torch.int32, device=dev)
+    panels, offs = k1_frames(dev, lens, P, seed=1)
     got = packpanel.splice_subframes(panels, offs, W)
     want = packpanel.splice_subframes_plain(panels, offs, W)
     torch.cuda.synchronize()
@@ -505,9 +623,19 @@ def check_kernels(dev, pcm16: np.ndarray):
     if int(got[1, W - 1]) == 0:
         raise AssertionError("splice_subframes: spill word not exercised")
     print(f"K1 splice_subframes: B={B} S={S} P={P} W={W} bit-exact")
-    # panels and offsets read once, slots written once; two shifts and an
-    # OR per shifted panel word
-    b1 = bound(B * S * P * 4 + B * S * 4 + B * W * 4, B * S * (P + 1) * 3)
+    # overlapping set bits (they add), negative and past-the-slot offsets
+    for s_ in (1, 2, 8):
+        jp, jo = k1_junk(dev, B, s_, P, W, seed=s_)
+        e = max_abs_err(packpanel.splice_subframes(jp, jo, W),
+                        packpanel.splice_subframes_plain(jp, jo, W))
+        if e:
+            raise AssertionError(f"splice_subframes (S={s_}, overlapping "
+                                 "bits, junk offsets) disagrees with its "
+                                 f"plain version: max_abs_err={e}")
+        del jp, jo
+    print(f"K1 splice_subframes: overlapping set bits, negative and "
+          f"past-the-slot offsets, S = 1, 2, 8 (B={B} P={P} W={W}) bit-exact")
+    b1 = k1_bound(offs, P, W)
     copies = [(panels.clone(), offs.clone())
               for _ in range(rotation(B * S * (P + 1) * 4))]
     t1 = kernel_times(
@@ -523,6 +651,30 @@ def check_kernels(dev, pcm16: np.ndarray):
         "replaces": "flac_codec_tpu/ops/packpanel.py:454",
         "max_abs_err": err, "ms": t1["kernel_ms"], **t1, **b1,
         "library_ms": None})
+
+    # K1 at the 8-channel 24-bit block-16384 slot (420 KB), a full batch
+    S8, N8 = 8, 16384
+    P8 = framepack.subframe_panel_words(N8, 24 + 2)
+    W8 = framepack.frame_slot_words(S8, N8, 24 + 2)
+    lens8 = rng.integers(P8 * 8, P8 * 16, (B, S8))
+    panels, offs = k1_frames(dev, lens8, P8, seed=8)
+    e = max_abs_err(packpanel.splice_subframes(panels, offs, W8),
+                    packpanel.splice_subframes_plain(panels, offs, W8))
+    if e:
+        raise AssertionError("splice_subframes (8 ch block 16384) disagrees "
+                             f"with its plain version: max_abs_err={e}")
+    b8 = k1_bound(offs, P8, W8)
+    copies = [(panels.clone(), offs.clone())
+              for _ in range(rotation(B * S8 * (P8 + 1) * 4))]
+    t8 = kernel_times(
+        lambda i: packpanel.splice_subframes(*copies[i], W8),
+        "splice_kernel", len(copies),
+        lambda i: packpanel.splice_subframes_plain(*copies[i], W8),
+        plain_copies=len(copies))
+    del copies, panels, offs
+    print(times_line(f"K1 splice_subframes (8 ch 24-bit block {N8}: B={B} "
+                     f"S={S8} P={P8} W={W8}, {W8 * 4} bytes a slot), "
+                     "bit-exact", t8, b8))
     return results
 
 
@@ -1197,7 +1349,7 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
 
 
 def check_slot_repair(dev) -> None:
-    """Phase 12: a K1 slot past one block's shared memory, end to end, and
+    """Phase 12: a frame slot past one block's shared memory, end to end, and
     K2 past it against its plain version."""
     import torch
 
@@ -1475,7 +1627,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",
-            "plain_timer", "bound_ms", "bound_by", "library_ms")
+            "plain_timer", "bound_ms", "bound_by", "bytes_ms",
+            "operations_ms", "smem_ms", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -131,6 +131,10 @@ def library() -> ctypes.CDLL:
             lib.flac_autocorr_levinson.argtypes = [ptr, ptr, ptr, ptr, i32,
                                                    i32, i32, ptr]
             lib.flac_autocorr_levinson.restype = i32
+            lib.flac_autocorr_levinson_tiles.argtypes = [ptr, ptr, ptr, ptr,
+                                                         i32, i32, i32, i32,
+                                                         ptr]
+            lib.flac_autocorr_levinson_tiles.restype = i32
             lib.flac_predict_lpc.argtypes = [ptr, ptr, i32, ptr, ptr, ptr,
                                              i32, i32, i32, ptr, ptr]
             lib.flac_predict_lpc.restype = i32

@@ -88,7 +88,8 @@ def levinson(autoc: torch.Tensor, max_order: int):
     return all_coeffs, torch.stack(errs, dim=1)
 
 
-def autocorr_levinson(windowed: torch.Tensor, max_order: int):
+def autocorr_levinson(windowed: torch.Tensor, max_order: int,
+                      tile_steps: int | None = None):
     """float64 (B, N) windowed rows -> (autoc (B, max_order+1),
     all_coeffs (B, max_order, MAX_ORDER), all_errs (B, max_order)), in
     the host encoder's exact rounding: each lag as numpy's ``np.dot``
@@ -96,7 +97,9 @@ def autocorr_levinson(windowed: torch.Tensor, max_order: int):
     ``models.lpc.lp_coefficients``.  CUDA tensors launch the kernel; CPU
     tensors take the plain version.  Rows must be longer than
     ``max_order``; the ddot order is OpenBLAS's single-thread one, which
-    it uses for rows of up to 10000 samples.
+    it uses for rows of up to 10000 samples.  ``tile_steps`` sets the
+    kernel's tile (32 * tile_steps samples of a row a stage of its ring;
+    None: the kernel's own); the results do not depend on it.
     """
     dev = kernels.check_inputs("autocorr_levinson", dict(windowed=windowed),
                                dict(windowed=torch.float64))
@@ -104,6 +107,9 @@ def autocorr_levinson(windowed: torch.Tensor, max_order: int):
     if not 1 <= max_order <= MAX_ORDER or N <= max_order:
         raise ValueError(f"autocorr_levinson: need 1 <= max_order <= "
                          f"{MAX_ORDER} < N, got max_order={max_order}, N={N}")
+    if tile_steps is not None and tile_steps < 1:
+        raise ValueError(f"autocorr_levinson: tile_steps must be positive, "
+                         f"not {tile_steps}")
     if dev.type == "cpu":
         return autocorr_levinson_plain(windowed, max_order)
     autoc = torch.empty((B, max_order + 1), dtype=torch.float64, device=dev)
@@ -111,11 +117,12 @@ def autocorr_levinson(windowed: torch.Tensor, max_order: int):
                          device=dev)
     errs = torch.empty((B, max_order), dtype=torch.float64, device=dev)
     if B:
-        kernels.launch("autocorr_levinson",
-                       kernels.library().flac_autocorr_levinson,
-                       windowed.data_ptr(), autoc.data_ptr(),
-                       coeffs.data_ptr(), errs.data_ptr(), B, N, max_order,
-                       device=dev)
+        lib = kernels.library()
+        fn, tiles = ((lib.flac_autocorr_levinson, ()) if tile_steps is None
+                     else (lib.flac_autocorr_levinson_tiles, (tile_steps,)))
+        kernels.launch("autocorr_levinson", fn, windowed.data_ptr(),
+                       autoc.data_ptr(), coeffs.data_ptr(), errs.data_ptr(),
+                       B, N, max_order, *tiles, device=dev)
     return autoc, coeffs, errs
 
 

@@ -12,7 +12,7 @@ PyTorch version beside it:
   symbols MSB-first into one (P,) panel per row.  It also serves as the
   JAX package's ``pack_fields_window``: header fields are symbols too.
 * :func:`splice_subframes` funnel-shifts each of a frame's S panels to
-  its body bit offset and ORs them into the frame's (W,) slot.
+  its body bit offset and adds them into the frame's (W,) slot.
 
 Each wrapper checks device, dtype, shape and contiguity, takes the plain
 version only for CPU tensors, and for CUDA tensors launches its kernel
@@ -117,11 +117,13 @@ def splice_subframes(panels: torch.Tensor, bit_offs: torch.Tensor,
     (B, W) int32 frame slots.
 
     Panel s of frame b is shifted right by ``bit_offs[b, s] % 32`` bits
-    and ORed in at word ``bit_offs[b, s] // 32``; its last word's
+    and added in at word ``bit_offs[b, s] // 32`` (a wrapping 32-bit sum,
+    as the JAX package's Pallas kernel adds: the same as OR while the
+    panels' set bits are disjoint, as a frame's are); its last word's
     shifted-out bits spill into the word after.  Words that would land
     outside the slot are dropped (fallback frames may carry offsets past
-    it); a frame whose offsets fit (max offset / 32 + P + 1 <= W) is
-    spliced whole.
+    it, or negative ones); a frame whose offsets fit (max offset / 32 + P
+    + 1 <= W) is spliced whole.  On the card this is one launch.
     """
     dev = kernels.check_inputs(
         "splice_subframes", dict(panels=panels, bit_offs=bit_offs),

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (WINDOW_EDGE_CASES, int32_edge_rows, k2_lists, music,
-                        parses_as_built, window_edge_inputs)
+from chip_smoke import (WINDOW_EDGE_CASES, bit_equal, int32_edge_rows,
+                        k1_junk, k2_lists, music, parses_as_built,
+                        window_edge_inputs)
 from flac_codec_tpu_torch import kernels, native
 from flac_codec_tpu_torch.bitio import BitWriter
 from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
@@ -175,9 +176,9 @@ def test_pack_symbols_is_one_kernel(dev):
 
 @pytest.mark.parametrize("B,S,P,W", [
     (256, 2, 2688, 5248),      # preset -8 stereo
-    (16, 8, 2688, 21696),      # 8 channels: > 48 KB of shared memory
+    (16, 8, 2688, 21696),      # 8 channels
     (5, 1, 128, 320),
-    (4, 8, 13696, 107520),     # 8 x 24-bit x 16384: > 227 KB, global
+    (4, 8, 13696, 107520),     # 8 x 24-bit x 16384: a 420 KB slot
 ])
 def test_splice_kernel_matches_plain(dev, B, S, P, W):
     gen = torch.Generator(device=dev).manual_seed(B * S)
@@ -198,32 +199,115 @@ def test_splice_kernel_matches_plain(dev, B, S, P, W):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("N,M", [(4096, 12), (4095, 32), (1152, 8),
-                                 (1000, 12), (33, 32), (4608, 1)])
+@pytest.mark.parametrize("S", [1, 2, 8])
+@pytest.mark.parametrize("B,P,W", [(64, 2688, 5248), (4, 13696, 60000),
+                                   (7, 33, 131)])
+def test_splice_kernel_adds_overlaps_and_drops_junk(dev, S, B, P, W):
+    """Overlapping set bits add (wrapping) as the plain version's
+    index_add_ does; negative and past-the-slot offsets drop the words
+    outside the slot; W past 227 KB and W % 4 != 0 take the same path."""
+    panels, offs = k1_junk(dev, B, S, P, W, seed=S * 1000 + P)
+    got = tpp.splice_subframes(panels, offs, W)
+    want = tpp.splice_subframes_plain(panels, offs, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.any()
+
+
+def _device_kernels(fn):
+    """The device events of one call of ``fn`` (empty where the profiler
+    records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("W", [5248, 107520])
+def test_splice_is_one_kernel(dev, W):
+    """One call is one kernel, with no memset, whatever the slot size."""
+    panels, offs = k1_junk(dev, 16, 2, 2688, W, seed=W)
+    n0 = kernels.LAUNCHES["splice_subframes"]
+    device = _device_kernels(lambda: tpp.splice_subframes(panels, offs, W))
+    assert kernels.LAUNCHES["splice_subframes"] == n0 + 2
+    if device:
+        assert len(device) == 1 and "splice_kernel" in device[0].name
+
+
+def _sines(N, rows, seed, dev):
+    rng = np.random.default_rng(seed)
+    t = np.arange(N)
+    sig = np.stack([(1 << 21) * np.sin(t * f) + rng.integers(-99, 99, N)
+                    for f in np.linspace(0.002, 0.2, rows)])
+    win = tlpc.window_array(("tukey", 0.5), N, torch.float64, dev)
+    return (torch.as_tensor(sig, device=dev) * win).contiguous()
+
+
+@pytest.mark.parametrize("N,M", [
+    *((n, m) for n in (33, 47, 48, 63, 64, 1000, 4095, 4096, 4608)
+      for m in (1, 12, 32) if n > m),
+    (1152, 8), (40, 27), (29, 28), (100, 20)])
 def test_autocorr_levinson_kernel_matches_host_rounding(dev, N, M):
     """Bit for bit the host encoder's numpy (np.dot + lp_coefficients),
     on near-pure sines where any other rounding flips coefficients."""
-    rng = np.random.default_rng(N + M)
-    t = np.arange(N)
-    rows = np.stack([(1 << 21) * np.sin(t * f) + rng.integers(-99, 99, N)
-                     for f in np.linspace(0.002, 0.2, 40)])
-    win = tlpc.window_array(("tukey", 0.5), N, torch.float64, dev)
-    windowed = (torch.as_tensor(rows, device=dev) * win).contiguous()
+    windowed = _sines(N, 40, N + M, dev)
     n0 = kernels.LAUNCHES["autocorr_levinson"]
     got = tlpc.autocorr_levinson(windowed, M)
     want = tlpc.autocorr_levinson_plain(windowed, M)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["autocorr_levinson"] == n0 + 1
-    for g, w in zip(got, want):
-        # bit for bit; NaNs (orders past a zero error) may differ in payload
-        assert torch.equal(g.isnan(), w.isnan())
-        assert torch.equal(g.nan_to_num().view(torch.int64),
-                           w.nan_to_num().view(torch.int64))
+    assert bit_equal(got, want)
+
+
+@pytest.mark.parametrize("M", [12, 32])
+def test_autocorr_levinson_kernel_past_one_wave(dev, M):
+    """1100 rows (past one wave of blocks), and rows that start 8 bytes
+    off a 16-byte boundary (the 8-byte copy path in place of the bulk
+    copies), bit for bit the host's numpy."""
+    windowed = _sines(4096, 1100, M, dev)
+    assert bit_equal(tlpc.autocorr_levinson(windowed, M),
+                     tlpc.autocorr_levinson_plain(windowed, M))
+    buf = torch.empty(37 * 4096 + 1, dtype=torch.float64, device=dev)
+    rows = buf[1:].view(37, 4096)
+    rows.copy_(_sines(4096, 37, M + 1, dev))
+    assert rows.data_ptr() % 16 == 8
+    assert bit_equal(tlpc.autocorr_levinson(rows, M),
+                     tlpc.autocorr_levinson_plain(rows, M))
+
+
+@pytest.mark.parametrize("N", [16384, 65535])
+@pytest.mark.parametrize("M", [12, 32])
+def test_autocorr_levinson_kernel_long_rows_any_tile(dev, N, M):
+    """Rows past OpenBLAS's one-thread size stream through the tile ring:
+    equal bit for bit whatever the tile (the default, 5 and 64 steps of
+    32 samples), and as the host's numpy to 1e-9 of lag 0 (numpy may
+    split such dots over threads, in another order)."""
+    windowed = _sines(N, 9, N + M, dev)
+    ref = tlpc.autocorr_levinson(windowed, M)
+    for steps in (5, 64):
+        assert bit_equal(
+            tlpc.autocorr_levinson(windowed, M, tile_steps=steps), ref)
+    want = tlpc.autocorr_levinson_plain(windowed, M)[0]
+    assert bool(((ref[0] - want).abs() <= 1e-9 * want[:, :1]).all())
+
+
+def test_autocorr_levinson_is_one_kernel(dev):
+    windowed = _sines(4096, 64, 5, dev)
+    device = _device_kernels(lambda: tlpc.autocorr_levinson(windowed, 12))
+    if device:
+        assert len(device) == 1 and "autocorr_levinson" in device[0].name
 
 
 def test_wrappers_refuse_mixed_devices_and_oversized_rows(dev):
     """Mixed devices raise; a panel or slot past one block's shared memory
-    (227 KB) does not: it is packed in the zeroed output instead."""
+    (227 KB) does not: K2 packs it in the zeroed output, K1 gathers it as
+    any other slot."""
     v = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     m = torch.zeros((2, 4), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="different devices"):

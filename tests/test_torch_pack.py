@@ -203,6 +203,40 @@ def test_splice_matches_pallas_and_ref(S):
     np.testing.assert_array_equal(_u32(got), want)
 
 
+@pytest.mark.parametrize("S,same_offset", [(2, False), (3, False),
+                                           (8, False), (4, True)])
+def test_splice_adds_overlapping_panels_like_pallas(S, same_offset):
+    """Panels whose set bits overlap, at in-range offsets (the Pallas
+    kernel clamps others): the plain version adds, wrapping at 32 bits, as
+    the Pallas kernel (in interpret mode) and the NumPy reference do; OR
+    would give other words."""
+    P, B = 128, 5
+    W = 2 * P + 128
+    rng = np.random.default_rng(40 + S)
+    panels = rng.integers(0, 1 << 32, (B, S, P), dtype=np.uint64).astype(
+        np.uint32)
+    panels[0] = 0xFFFFFFFF                  # every bit set: sums carry
+    top = (W - P - 128) * 32                # the Pallas kernel's largest
+    offs = rng.integers(0, top + 1, (B, S)).astype(np.int32)
+    offs[1, :] = [32 * (s % 3) for s in range(S)]   # word-aligned overlaps
+    offs[2, 0] = top
+    if same_offset:
+        offs[:] = offs[:, :1]
+    got = _u32(tpp.splice_subframes(_i32(panels), torch.as_tensor(offs), W))
+    ref = jpp.splice_subframes_ref(panels, offs, W)
+    want = np.asarray(jpp.splice_subframes(jnp.asarray(panels),
+                                           jnp.asarray(offs), W))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, want)
+    ored = np.zeros_like(ref)
+    for b in range(B):
+        for s in range(S):
+            one = np.zeros((B, S, P), np.uint32)
+            one[b, s] = panels[b, s]
+            ored[b] |= jpp.splice_subframes_ref(one, offs, W)[b]
+    assert not np.array_equal(got, ored)
+
+
 def test_splice_guards_the_slot():
     """Offsets past the slot (fallback frames) drop the words outside it
     instead of writing into the next frame."""
