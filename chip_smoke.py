@@ -59,7 +59,20 @@ non-zero without one, and outside a checkout).  Phases:
    60,000-word panels;
 13. encode MB/s of PCM in f64 and f32, and decode MB/s of PCM with the
    host parse and with the device parse, with their stage times (median
-   of 3, synchronised).
+   of 3, synchronised);
+14. the residual-only (``frame_pack=False``) and plan-tree
+   (``pack_budget=0``) encode paths, each counted: both clips in f64,
+   byte-identical to the frame-packed streams of phase 3 (so to
+   ``FlacSampleWriter``); the residual-only path must launch K2 and the
+   autocorrelation and not K1, the plan-tree path the autocorrelation
+   and neither K1 nor K2;
+15. batch sharding: under ``batch_mesh()`` (every visible card) and
+   ``batch_mesh([cuda:0, cuda:0])`` (two shards on two streams of one
+   card), the 120 s clip encoded frame-packed and residual-only (bytes
+   of phase 3, counted) and the three streams of phases 3-4 decoded with
+   the host parse (PCM equal to the input on ``cuda:0``, K3 counted);
+16. encode MB/s of PCM in each mode (frame-packed, residual-only, plan
+   tree), f64, median of 3, with stage times.
 
 Every time is printed beside the card's ``nvidia-smi`` name and power
 limit.  Any failed check raises.  The last lines are a JSON summary of
@@ -323,6 +336,9 @@ def k2_lists(dev, pcm16: np.ndarray):
     * "framepack slot 0" / "slot 1": the lists the frame packer hands K2
       for each channel slot (residual section and header fields, M =
       4229), caught on their way into ``bitpack.pack_symbols``;
+    * "residual-only slot 0": slot 0's list in the residual-only pack
+      mode (``encode_batch._pack_plan_channels``: the residual section
+      alone from panel bit 0, M = 4161, into panels of the same P);
     * "planner": slot 0's residual section alone, as
       ``bitpack.residual_symbols`` gives it (M = 4161);
     * "permuted": slot 0's framepack lists with their columns in one
@@ -332,9 +348,8 @@ def k2_lists(dev, pcm16: np.ndarray):
     import torch
 
     from flac_codec_tpu_torch.encode import Options
-    from flac_codec_tpu_torch.ops import bitpack, framepack
+    from flac_codec_tpu_torch.ops import bitpack, encode_batch, framepack
     from flac_codec_tpu_torch.ops.common import TYPE_FIXED, TYPE_LPC
-    from flac_codec_tpu_torch.ops.encode_batch import encode_frames_plan
 
     opts = Options.best()
     N, B = opts.block_size, BATCH_FRAMES
@@ -342,22 +357,27 @@ def k2_lists(dev, pcm16: np.ndarray):
     P = framepack.subframe_panel_words(N, budget)
     batch = torch.as_tensor(pcm16[:B * N * 2].reshape(B, N, 2)
                             .transpose(0, 2, 1).copy(), device=dev)
-    plan = encode_frames_plan(
+    plan = encode_batch.encode_frames_plan(
         batch, bits_per_sample=16, block_size=N,
         max_lpc_order=opts.max_lpc_order,
         max_partition_order=opts.max_partition_order, analysis="f64")
-    lists = {}
+    caught = []
     pack = bitpack.pack_symbols
 
     def catch(*args):
-        lists[f"framepack slot {len(lists)}"] = args[:4]
+        caught.append(args[:4])
         return pack(*args)
 
     bitpack.pack_symbols = catch
     try:
         framepack.pack_frame_bodies(plan, N, 16, budget)
+        residual = encode_batch._pack_plan_channels(plan, N, budget)
     finally:
         bitpack.pack_symbols = pack
+    if int(residual["packed_meta"][1]) != P:
+        raise AssertionError("residual-only panels are not P words wide")
+    lists = {"framepack slot 0": caught[0], "framepack slot 1": caught[1],
+             "residual-only slot 0": caught[2]}
     ch = plan["channels"][0]
     typ = ch["sub_type"].long()
     lists["planner"], _ = bitpack.residual_symbols(
@@ -514,8 +534,9 @@ def check_kernels(dev, pcm16: np.ndarray):
     W = framepack.frame_slot_words(S, N, budget)
     results = []
 
-    # K2 on the frame packer's own lists from real audio, a column-permuted
-    # copy, the planner's residual sections and random disjoint lists
+    # K2 on the frame packer's own lists from real audio, the residual-only
+    # lists, a column-permuted copy, the planner's residual sections and
+    # random disjoint lists
     batch, P, lists = k2_lists(dev, pcm16)
     err = 0
     for label, args in lists.items():
@@ -535,7 +556,8 @@ def check_kernels(dev, pcm16: np.ndarray):
         rows, M = args[0].shape
         print(f"K2 pack_symbols {label}: rows={rows} M={M} P={P} bit-exact, "
               f"{int(ovf.sum())} overflow rows")
-    for label in ("framepack slot 0", "planner", "permuted"):
+    for label in ("framepack slot 0", "residual-only slot 0", "planner",
+                  "permuted"):
         args = lists[label]
         b2 = k2_bound(args, P)
         copies = k2_copies(args, rotation(b2["bound_ms"] * 1e-3
@@ -678,7 +700,9 @@ def check_kernels(dev, pcm16: np.ndarray):
     return results
 
 
-def encode_port(inter, rate, bps, analysis, dev):
+def encode_port(inter, rate, bps, analysis, dev, **mode):
+    """``inter`` through the port's BatchEncoder on ``dev`` (``mode``:
+    ``frame_pack``, ``pack_budget`` or ``mesh``)."""
     import torch
 
     from flac_codec_tpu_torch.encode import Options
@@ -688,7 +712,7 @@ def encode_port(inter, rate, bps, analysis, dev):
     enc = BatchEncoder(buf, Options.best(), rate, bps, 2,
                        total_samples=len(inter) // 2,
                        batch_frames=BATCH_FRAMES, analysis=analysis,
-                       device=dev)
+                       device=dev, **mode)
     enc.write(inter)
     enc.finalize()
     torch.cuda.synchronize()
@@ -1407,13 +1431,14 @@ def check_slot_repair(dev) -> None:
 
 
 def decode_port(data: bytes, dev, batch_frames=BATCH_FRAMES,
-                device_parse=False):
+                device_parse=False, mesh=None):
     import torch
 
     from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 
     with BatchDecoder(io.BytesIO(data), batch_frames=batch_frames,
-                      device=dev, device_parse=device_parse) as dec:
+                      device=dev, device_parse=device_parse,
+                      mesh=mesh) as dec:
         pcm = dec.read_all_device()
         torch.cuda.synchronize()
     return pcm, dec
@@ -1448,6 +1473,90 @@ def check_corpus(root, dev, device_parse=False):
     print(f"conformance corpus (device_parse={device_parse}): "
           f"{len(manifest)} streams match pcm_md5 on the card; {frames[0]} "
           f"device frames, {frames[1]} host frames, launches {launched}")
+
+
+# the encode modes beside the default frame-packed one: BatchEncoder
+# arguments, the kernels each path must launch and those it must not
+ENCODE_MODES = {
+    "residual-only": (dict(frame_pack=False),
+                      ("pack_symbols", "autocorr_levinson"),
+                      ("splice_subframes",)),
+    "plan tree": (dict(pack_budget=0), ("autocorr_levinson",),
+                  ("pack_symbols", "splice_subframes")),
+}
+
+
+def check_launches(label: str, launches: dict, want=(), never=()) -> None:
+    """Raise unless every kernel in ``want`` launched and none in
+    ``never`` did."""
+    for name in want:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+    for name in never:
+        if launches[name] != 0:
+            raise AssertionError(f"{label}: kernel {name} was launched "
+                                 f"{launches[name]} times")
+
+
+def check_encode_modes(dev, clips) -> None:
+    """Phase 14: the residual-only and plan-tree encode paths, each
+    counted, byte-identical to the frame-packed streams."""
+    from flac_codec_tpu_torch import kernels
+
+    for mode, (kw, want, never) in ENCODE_MODES.items():
+        kernels.reset_launches()
+        fallback = 0
+        for label, inter, rate, bps, data in clips:
+            got, enc = encode_port(inter, rate, bps, "f64", dev, **kw)
+            if got != data:
+                raise AssertionError(f"{label} ({mode}): bytes differ from "
+                                     "the frame-packed stream")
+            fallback += enc.fallback_frames
+            print(f"{label} ({mode}): byte-identical to FlacSampleWriter, "
+                  f"{enc.device_frames} device frames, "
+                  f"{enc.fallback_frames} fallback frames")
+        launches = dict(kernels.LAUNCHES)
+        print(f"{mode} encode-path launches: {launches}; fallback frames: "
+              f"{fallback}")
+        check_launches(f"{mode} encode path", launches, want, never)
+
+
+def check_mesh(dev, pcm16, data16, streams) -> None:
+    """Phase 15: the 120 s clip encoded and the three streams decoded
+    under a mesh of every visible card and under cuda:0 listed twice."""
+    from flac_codec_tpu_torch import kernels
+    from flac_codec_tpu_torch.parallel.mesh import batch_mesh
+
+    for mesh in (batch_mesh(), batch_mesh([dev, dev])):
+        name = "[" + ", ".join(str(d) for d in mesh) + "]"
+        for mode, kw, want, never in (
+                ("frame-packed", {}, ("pack_symbols", "splice_subframes",
+                                      "autocorr_levinson"), ()),
+                ("residual-only",) + ENCODE_MODES["residual-only"]):
+            kernels.reset_launches()
+            got, enc = encode_port(pcm16, 44100, 16, "f64", dev, mesh=mesh,
+                                   **kw)
+            launches = dict(kernels.LAUNCHES)
+            if got != data16:
+                raise AssertionError(f"mesh {name} ({mode}): bytes differ "
+                                     "from the unsharded stream")
+            check_launches(f"mesh {name} {mode} encode path", launches,
+                           want, never)
+            print(f"mesh {name}: 16-bit 120 s ({mode}) byte-identical, "
+                  f"{enc.device_frames} device frames, {enc.fallback_frames}"
+                  f" fallback frames; launches {launches}")
+        kernels.reset_launches()
+        for label, data, inter in streams:
+            pcm, dec = decode_port(data, dev, mesh=mesh)
+            if pcm.device != mesh[0] or not np.array_equal(
+                    pcm.cpu().numpy().reshape(-1), inter):
+                raise AssertionError(f"mesh {name}: {label} decoded PCM "
+                                     "differs from the input")
+        launches = dict(kernels.LAUNCHES)
+        check_launches(f"mesh {name} decode path", launches,
+                       ("predict_lpc",))
+        print(f"mesh {name}: the three streams decode losslessly onto "
+              f"{mesh[0]}; launches {launches}")
 
 
 def stage_ms(path: str, names) -> dict:
@@ -1624,6 +1733,34 @@ def main() -> int:
                   "run " + ", ".join(f"{k} {v:.1f} ms"
                                      for k, v in stages.items())
                   + f") on {card()}")
+
+    # ---- 14. the residual-only and plan-tree encode paths, counted ----
+    check_encode_modes(dev, (
+        ("16-bit 44.1 kHz 120 s", pcm16, 44100, 16, data16),
+        ("24-bit 96 kHz 20 s", pcm24, 96000, 24, data24)))
+
+    # ---- 15. batch sharding over a device list ----
+    check_mesh(dev, pcm16, data16, streams)
+
+    # ---- 16. encode rate in each mode ----
+    mb = len(pcm16) * 2 / 1e6
+    enc_stages = ("encode.dispatch", "encode.download", "encode.md5",
+                  "encode.assemble")
+    for mode, kw in (("frame-packed", {}),
+                     *((m, v[0]) for m, v in ENCODE_MODES.items())):
+        runs = []
+        for _ in range(3):
+            open(trace_path, "w").close()
+            t = time.perf_counter()
+            encode_port(pcm16, 44100, 16, "f64", dev, **kw)
+            runs.append((time.perf_counter() - t,
+                         stage_ms(trace_path, enc_stages)))
+        secs, stages = sorted(runs, key=lambda r: r[0])[1]
+        print(f"encode f64 {mode}: {mb / secs:.2f} MB/s of PCM (median of "
+              f"3: {secs:.3f} s for {mb:.2f} MB; runs "
+              f"{', '.join(f'{r[0]:.3f}' for r in runs)}; in the median run "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+              + f") on {card()}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

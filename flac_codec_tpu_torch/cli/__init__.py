@@ -1,7 +1,9 @@
 """CLI of the port: ``python -m flac_codec_tpu_torch.cli <tool> [args...]``.
 
-``wav2flac`` and ``flac2wav`` are ported; the other tools of the JAX
-package's ``cli`` run on the host and need no port.
+The JAX package's 14 tools (reference: examples/*.rs).  ``wav2flac`` and
+``flac2wav`` run through the port's batch encoder and decoder on
+``--device`` (default ``cuda``); the other twelve run on the host and are
+copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -9,7 +11,22 @@ from __future__ import annotations
 import importlib
 import sys
 
-TOOLS = {"wav2flac": "wav2flac", "flac2wav": "flac2wav"}
+TOOLS = {
+    "wav2flac": "wav2flac",
+    "flac2wav": "flac2wav",
+    "flac-info": "flac_info",
+    "flac-analyze": "flac_analyze",
+    "flac-verify": "flac_verify",
+    "flac-tag": "flac_tag",
+    "flac-cat": "flac_cat",
+    "flac-split": "flac_split",
+    "flac-play": "flac_play",
+    "flac-resample": "flac_resample",
+    "flac-add-cover": "flac_add_cover",
+    "flac-view-artwork": "flac_view_artwork",
+    "flac-import-cuesheet": "flac_import_cuesheet",
+    "flac-export-cuesheet": "flac_export_cuesheet",
+}
 
 
 def main(argv=None) -> int:
@@ -18,8 +35,24 @@ def main(argv=None) -> int:
         print("usage: python -m flac_codec_tpu_torch.cli <tool> [args...]\n"
               "tools:\n" + "\n".join(f"  {name}" for name in TOOLS))
         return 0
-    if argv[0] not in TOOLS:
-        print(f"unknown tool {argv[0]!r}", file=sys.stderr)
+    tool = argv[0]
+    if tool not in TOOLS:
+        print(f"unknown tool {tool!r}", file=sys.stderr)
         return 2
-    mod = importlib.import_module(f".{TOOLS[argv[0]]}", __name__)
-    return mod.main(argv[1:]) or 0
+    mod = importlib.import_module(f".{TOOLS[tool]}", __name__)
+    try:
+        return mod.main(argv[1:]) or 0
+    except Exception as e:
+        # expected failures (missing or unreadable files, invalid streams)
+        # print one line, as the reference examples do; anything else is a
+        # bug and keeps its traceback
+        from ..errors import FlacError
+
+        if isinstance(e, (OSError, FlacError, ValueError)):
+            print(f"{tool}: {e}", file=sys.stderr)
+            return 1
+        raise
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 # leaves whose numpy dtype the port cannot hold as is
-_TO_NUMPY = {"frame_words": np.uint32, "inner_crc": np.uint16}
+_TO_NUMPY = {"frame_words": np.uint32, "packed_words": np.uint32,
+             "inner_crc": np.uint16}
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
@@ -54,7 +55,7 @@ def _leaf_to_numpy(key: str, t: torch.Tensor) -> np.ndarray:
 
 def plan_to_numpy(plan: dict) -> dict:
     """Tensor plan tree -> numpy plan tree with the JAX package's dtypes
-    (``frame_words`` uint32, ``inner_crc`` uint16)."""
+    (``frame_words`` and ``packed_words`` uint32, ``inner_crc`` uint16)."""
     out = {}
     for k, v in plan.items():
         if k == "channels":

@@ -27,8 +27,14 @@ parses them.  A batch the scan cannot start or the parser does not take
 whole goes to the host parse, which raises the precise error or decodes
 it; ``parse_fallbacks`` counts such batches.
 
-Not ported: ``mesh`` sharding and the ``FLAC_TPU_PALLAS`` /
-``FLAC_TPU_NO_PALLAS`` / ``FLAC_TPU_DEVICE_PARSE`` switches.
+With ``mesh`` (``parallel.mesh``) the host parse fills each batch as
+before, then each device reconstructs one contiguous shard of its frames
+on a stream of its own, and the shards are gathered in order onto the
+mesh's first device.  The device parse does not run under a mesh: asking
+for both raises, where the JAX package turns the device parse off.
+
+Not ported: the ``FLAC_TPU_PALLAS`` / ``FLAC_TPU_NO_PALLAS`` /
+``FLAC_TPU_DEVICE_PARSE`` switches.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..ops.framescan import parse_frame_bodies, parse_gate
 from ..ops.predict import fixed_compatible_mask, predict_fixed_batch
 from ..ops.predict_pallas import predict_lpc, tap_bucket
 from ..utils import trace
+from .mesh import batch_mesh, on_stream, shard_streams
 
 
 def _device_reconstruct(buf, qcoeffs, shift, order, wasted, assignment,
@@ -92,19 +99,29 @@ class BatchDecoder:
     ``device="cuda"`` without CUDA raises, and so does a native engine
     that does not build.  ``device="cpu"`` runs the same pipeline with the
     kernels' plain versions.  Decoded batches are int32 tensors on
-    ``device``.  ``device_parse`` parses the frame bodies on the device
-    (module docstring).
+    ``device``.  ``device_parse`` parses the frame bodies on the device;
+    ``mesh`` (``parallel.mesh.batch_mesh``) shards the reconstruction over
+    its devices and leaves the PCM on the first, and ``device`` is then
+    not consulted (module docstring).
     """
 
     def __init__(self, fp_or_path, batch_frames: int = 256, device="cuda",
-                 device_parse: bool = False):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "BatchDecoder(device='cuda'): CUDA is not available")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+                 device_parse: bool = False, mesh=None):
+        self.mesh = None if mesh is None else batch_mesh(mesh)
+        if self.mesh is not None:
+            if device_parse:
+                raise ValueError("BatchDecoder: device_parse=True does not "
+                                 "run under a mesh")
+            self.device = self.mesh[0]
+            self._streams = shard_streams(self.mesh)
+        else:
+            self.device = torch.device(device)
+            if self.device.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        "BatchDecoder(device='cuda'): CUDA is not available")
+            elif self.device.type != "cpu":
+                raise ValueError(f"unsupported device {self.device}")
         self._nat = native.load()
         self._owns_fp = isinstance(fp_or_path, (str, bytes))
         if self._owns_fp:
@@ -316,13 +333,39 @@ class BatchDecoder:
                                       raw["order"].reshape(n * C)).all()
         mode = "fixed" if fixed else "lpc"
         taps = 32 if fixed else tap_bucket(int(raw["order"].max()))
+        args = [torch.from_numpy(raw[k]) for k in (
+            "buf", "qcoeffs", "shift", "order", "wasted", "assignment")]
         with trace.stage("decode.reconstruct", frames=n, mode=mode):
-            args = [torch.from_numpy(raw[k]).to(self.device)
-                    for k in ("buf", "qcoeffs", "shift", "order", "wasted",
-                              "assignment")]
-            pcm = _device_reconstruct(*args, mode=mode, taps=taps)
+            if self.mesh is None:
+                pcm = _device_reconstruct(
+                    *(a.to(self.device) for a in args), mode=mode, taps=taps)
+            else:
+                pcm = self._reconstruct_sharded(args, mode, taps)
         self.device_frames += n
         return pcm, raw["blocks"]
+
+    def _reconstruct_sharded(self, args, mode: str, taps: int):
+        """Reconstruct one contiguous shard of the batch on each mesh
+        device and stream, and gather the shards in order on the first
+        device, whose current stream waits for every shard."""
+        home = self.mesh[0]
+        consumer = (torch.cuda.current_stream(home) if home.type == "cuda"
+                    else None)
+        parts = []
+        shards = zip(*(torch.tensor_split(a, len(self.mesh)) for a in args))
+        for d, s, shard in zip(self.mesh, self._streams, shards):
+            if shard[0].shape[0] == 0:
+                continue
+            with on_stream(s):
+                part = _device_reconstruct(
+                    *(a.to(d) for a in shard), mode=mode, taps=taps)
+                part = part.to(home)
+            if consumer is not None:
+                if s is not None:
+                    consumer.wait_stream(s)
+                part.record_stream(consumer)
+            parts.append(part)
+        return torch.cat(parts)
 
     def read_batch_interleaved(self):
         """One decoded batch as a (samples, channels) int32 tensor on the

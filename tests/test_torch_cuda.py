@@ -346,6 +346,71 @@ def test_batch_encoder_f64_on_card_matches_host(dev, bps, rate):
     assert outs[0] == outs[1]
 
 
+def _stereo_clip(bps: int, frames: int = 9):
+    """Seeded stereo PCM of ``frames`` 4096-sample frames and a partial
+    tail, interleaved int32, and its sample count."""
+    rng = np.random.default_rng(bps + 1)
+    n = 4096 * frames + 1000
+    t = np.arange(n)
+    amp = 1 << (bps - 3)
+    inter = np.stack([amp * np.sin(t * 0.011) + rng.integers(-99, 99, n),
+                      amp * np.sin(t * 0.017) + rng.integers(-99, 99, n)]
+                     ).T.reshape(-1).astype(np.int32)
+    return inter, n
+
+
+def _encode_on(cls, inter, n, bps, rate, **kw):
+    buf = io.BytesIO()
+    enc = cls(buf, Options.best(), rate, bps, 2, total_samples=n, **kw)
+    enc.write(inter)
+    enc.finalize()
+    return buf.getvalue()
+
+
+ENCODE_MODES = {"residual_only": dict(frame_pack=False),
+                "plan_tree": dict(pack_budget=0)}
+
+
+@pytest.mark.parametrize("mode", sorted(ENCODE_MODES))
+@pytest.mark.parametrize("bps,rate", [(16, 44100), (24, 96000)])
+def test_batch_encoder_modes_on_card_match_host(dev, mode, bps, rate):
+    """Residual-only packing launches K2 and not K1; the plan tree
+    neither; both write the host encoder's bytes."""
+    inter, n = _stereo_clip(bps)
+    want = _encode_on(FlacSampleWriter, inter, n, bps, rate)
+    n0 = dict(kernels.LAUNCHES)
+    got = _encode_on(BatchEncoder, inter, n, bps, rate, batch_frames=4,
+                     analysis="f64", device=dev, **ENCODE_MODES[mode])
+    launched = {k: kernels.LAUNCHES[k] - n0[k] for k in n0}
+    assert got == want
+    assert launched["autocorr_levinson"] > 0
+    assert launched["splice_subframes"] == 0
+    assert (launched["pack_symbols"] > 0) == (mode == "residual_only")
+
+
+@pytest.mark.parametrize("mode", ["frame_packed", *sorted(ENCODE_MODES)])
+def test_two_shards_on_one_card(dev, mode):
+    """cuda:0 listed twice: two shards on two streams of one card, with
+    batches of 5 and 4 frames; the bytes of the host encoder, and the
+    decoder's samples gathered on cuda:0."""
+    from flac_codec_tpu_torch.parallel.mesh import batch_mesh
+
+    mesh = batch_mesh([dev, dev])
+    inter, n = _stereo_clip(16)
+    want = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    got = _encode_on(BatchEncoder, inter, n, 16, 44100, batch_frames=5,
+                     analysis="f64", mesh=mesh,
+                     **ENCODE_MODES.get(mode, {}))
+    assert got == want
+    n0 = kernels.LAUNCHES["predict_lpc"]
+    with BatchDecoder(io.BytesIO(got), batch_frames=5, mesh=mesh) as dec:
+        pcm = dec.read_all_device()
+    torch.cuda.synchronize()
+    assert pcm.device == mesh[0]
+    np.testing.assert_array_equal(pcm.cpu().numpy().reshape(-1), inter)
+    assert kernels.LAUNCHES["predict_lpc"] > n0
+
+
 def _lpc_rows(rng, orders, N, sample_bits=23):
     """Bounded samples through a forward predictor scaled to a random
     shift in 0-15, so residuals fit int32; order-0 rows pass through."""
