@@ -24,7 +24,9 @@ non-zero without one, and outside a checkout).  Phases:
    ``BatchEncoder`` at ``Options.best()``; each stream must be
    byte-identical to the port's host encoder ``FlacSampleWriter``;
 4. the encode path in f32: the 120 s clip must decode losslessly (MD5);
-5. every encode kernel must have launched during phases 3-4;
+5. every encode kernel must have launched during phases 3-4, and every
+   batch of whole frames (the short last one padded) must have been a
+   replay of a captured CUDA graph;
 6. the decode kernel ``predict_lpc`` against its plain version, bit for
    bit: the raw subframes the port's native parser returns for the 120 s
    stream (preset -8 decode shapes), seeded random rows in every tap
@@ -53,7 +55,8 @@ non-zero without one, and outside a checkout).  Phases:
    fall back to the host parse but the one holding the short tail;
 11. the conformance corpus through the device-parse path (``pcm_md5``);
 12. a slot past one block's shared memory: 1 s of 8-channel 24-bit
-   96 kHz at block 16384 (a 420 KB frame slot) encoded on the card, f64
+   96 kHz at block 16384 (a 420 KB frame slot; its 5 frames padded to a
+   256-frame batch) encoded on the card, f64
    byte-identical to ``FlacSampleWriter`` and decoded back losslessly
    through both parse paths; and K2 against its plain version on
    60,000-word panels;
@@ -72,9 +75,18 @@ non-zero without one, and outside a checkout).  Phases:
    of phase 3, counted) and the three streams of phases 3-4 decoded with
    the host parse (PCM equal to the input on ``cuda:0``, K3 counted);
 16. encode MB/s of PCM in each mode (frame-packed, residual-only, plan
-   tree), f64, median of 3, with stage times.
+   tree), f64, median of 3, with stage times;
+17. CUDA graphs against ``graphs=False`` (eager planning) in each mode in
+   f64 and frame-packed in f32, in turns: MB/s (median of 3) with stage
+   times, the device ms of a batch (CUDA events around back-to-back
+   replays, and around one eager call), and, by ``torch.profiler`` over
+   one encode, the device's kernel and copy time and the host's CUDA
+   API calls a batch.
 
-Every time is printed beside the card's ``nvidia-smi`` name and power
+Every encoder here runs with CUDA graphs on (the default) but those of
+phase 17 that ask for ``graphs=False``; each graph's capture prints the
+growth of ``torch.cuda.memory_reserved()``, and phases 3-4, 12, 14 and
+15 check that every batch was a replay.  Every time is printed beside the card's ``nvidia-smi`` name and power
 limit.  Any failed check raises.  The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1390,6 +1402,7 @@ def check_slot_repair(dev) -> None:
     opts = Options.best().with_block_size(block)
     W = framepack.frame_slot_words(ch, block, bps + 2)
     streams = []
+    before = graph_replays()
     for cls, kw in ((FlacSampleWriter, {}),
                     (BatchEncoder, dict(batch_frames=BATCH_FRAMES,
                                         analysis="f64", device=dev))):
@@ -1401,6 +1414,8 @@ def check_slot_repair(dev) -> None:
     if streams[0] != streams[1]:
         raise AssertionError("8-channel 24-bit block-16384 stream differs "
                              "from the host encoder's")
+    check_replays("8 ch 24-bit block 16384 encode", before,
+                  batch_replays(rate // block))
     for device_parse in (False, True):
         pcm, dec = decode_port(streams[1], dev, device_parse=device_parse)
         if not np.array_equal(pcm.cpu().numpy().reshape(-1), inter):
@@ -1506,6 +1521,7 @@ def check_encode_modes(dev, clips) -> None:
     for mode, (kw, want, never) in ENCODE_MODES.items():
         kernels.reset_launches()
         fallback = 0
+        before = graph_replays()
         for label, inter, rate, bps, data in clips:
             got, enc = encode_port(inter, rate, bps, "f64", dev, **kw)
             if got != data:
@@ -1519,6 +1535,8 @@ def check_encode_modes(dev, clips) -> None:
         print(f"{mode} encode-path launches: {launches}; fallback frames: "
               f"{fallback}")
         check_launches(f"{mode} encode path", launches, want, never)
+        check_replays(f"{mode} encode path", before, sum(
+            batch_replays(len(c[1]) // 2 // 4096) for c in clips))
 
 
 def check_mesh(dev, pcm16, data16, streams) -> None:
@@ -1534,6 +1552,7 @@ def check_mesh(dev, pcm16, data16, streams) -> None:
                                       "autocorr_levinson"), ()),
                 ("residual-only",) + ENCODE_MODES["residual-only"]):
             kernels.reset_launches()
+            before = graph_replays()
             got, enc = encode_port(pcm16, 44100, 16, "f64", dev, mesh=mesh,
                                    **kw)
             launches = dict(kernels.LAUNCHES)
@@ -1542,6 +1561,9 @@ def check_mesh(dev, pcm16, data16, streams) -> None:
                                      "from the unsharded stream")
             check_launches(f"mesh {name} {mode} encode path", launches,
                            want, never)
+            check_replays(f"mesh {name} {mode} encode path", before,
+                          batch_replays(len(pcm16) // 2 // 4096,
+                                        len(mesh)))
             print(f"mesh {name}: 16-bit 120 s ({mode}) byte-identical, "
                   f"{enc.device_frames} device frames, {enc.fallback_frames}"
                   f" fallback frames; launches {launches}")
@@ -1557,6 +1579,163 @@ def check_mesh(dev, pcm16, data16, streams) -> None:
                        ("predict_lpc",))
         print(f"mesh {name}: the three streams decode losslessly onto "
               f"{mesh[0]}; launches {launches}")
+
+
+def graph_replays() -> dict:
+    """Each captured plan graph's replays so far, by key."""
+    from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
+
+    return {k: g.replays for k, g in PLAN_GRAPHS.items()}
+
+
+def graph_name(key) -> str:
+    """A plan graph's key, short: device, stream, input and mode."""
+    device, stream, shape, dtype, kw = key
+    kw = dict(kw)
+    return (f"{device} stream {stream:#x} {tuple(shape)} "
+            f"{str(dtype).split('.')[-1]} {kw['bits_per_sample']}-bit "
+            f"{kw['analysis']} pack_budget={kw['pack_budget']} "
+            f"frame_pack={kw['frame_pack']}")
+
+
+def batch_replays(frames: int, shards: int = 1) -> int:
+    """How many graph replays ``frames`` whole frames take in 256-frame
+    batches over ``shards`` shards: a replay per shard holding a real
+    frame (the short batch is padded; a shard of padding only is not
+    planned)."""
+    sizes = [len(c) for c in np.array_split(np.arange(BATCH_FRAMES),
+                                             shards)]
+    firsts = np.cumsum([0] + sizes[:-1])
+    total = 0
+    for lo in range(0, frames, BATCH_FRAMES):
+        real = min(BATCH_FRAMES, frames - lo)
+        total += sum(1 for f, n in zip(firsts, sizes) if n and f < real)
+    return total
+
+
+def check_replays(label: str, before: dict, want: int) -> None:
+    """Raise unless the plan graphs replayed ``want`` times since
+    ``before`` (``graph_replays()``); print each graph captured since,
+    with the growth of ``memory_reserved`` its capture left."""
+    from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
+
+    for key, g in PLAN_GRAPHS.items():
+        if key not in before:
+            tally = {k: v for k, v in g.tally.items() if v}
+            print(f"  captured {graph_name(key)}: memory_reserved "
+                  f"+{g.reserved_bytes / 2**20:.1f} MiB, warm-up and "
+                  f"capture {g.capture_seconds:.2f} s, launches a replay "
+                  f"{tally}")
+    got = sum(n - before.get(k, 0) for k, n in graph_replays().items())
+    if got != want:
+        raise AssertionError(f"{label}: {got} graph replays, want {want} "
+                             "(one per shard of every whole-frame batch)")
+    print(f"{label}: {got} graph replays, one per shard of every "
+          "whole-frame batch")
+
+
+def replay_ms(graph, n: int = 10) -> float:
+    """Device ms of one replay of ``graph``: CUDA events around ``n``
+    back-to-back replays on its stream (the host enqueues a replay in
+    microseconds, so the device runs them without a gap).  These replays
+    are measurements and are not counted in ``kernels.LAUNCHES``."""
+    import torch
+
+    with torch.cuda.stream(graph.stream):
+        graph.graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_encode(fn, batches: int) -> tuple:
+    """``torch.profiler`` over ``fn()``: (device ms a batch, the kernels'
+    and copies' own device time, or None where the profiler saw none;
+    host CUDA API calls a batch, every ``cuda*`` call counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_us, api = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            device_us += t if t is not None else e.self_cuda_time_total
+        elif e.key.startswith("cuda"):
+            api += e.count
+    return (device_us / 1e3 / batches if device_us > 0 else None,
+            api / batches)
+
+
+# phase 17's configurations: mode, analysis, BatchEncoder arguments
+GRAPH_CONFIGS = (("frame-packed", "f64", {}),
+                 ("residual-only", "f64", {"frame_pack": False}),
+                 ("plan tree", "f64", {"pack_budget": 0}),
+                 ("frame-packed", "f32", {}))
+
+ENCODE_STAGES = ("encode.dispatch", "encode.download", "encode.md5",
+                 "encode.assemble")
+
+
+def compare_graphs(dev, pcm16, trace_path: str) -> None:
+    """Phase 17: the 120 s clip encoded with CUDA graphs and with
+    ``graphs=False`` in each configuration, in turns."""
+    import torch
+
+    from flac_codec_tpu_torch.ops.encode_batch import (PLAN_GRAPHS,
+                                                       encode_frames_plan)
+
+    mb = len(pcm16) * 2 / 1e6
+    batches = batch_replays(len(pcm16) // 2 // 4096)
+    for mode, analysis, kw in GRAPH_CONFIGS:
+        runs = {True: [], False: []}
+        before = graph_replays()
+        for i in range(3):
+            for graphs in ((True, False) if i % 2 == 0 else (False, True)):
+                open(trace_path, "w").close()
+                t = time.perf_counter()
+                _, enc = encode_port(pcm16, 44100, 16, analysis, dev,
+                                     graphs=graphs, **kw)
+                runs[graphs].append((time.perf_counter() - t,
+                                     stage_ms(trace_path, ENCODE_STAGES)))
+        (key, _), = ((k, n) for k, n in graph_replays().items()
+                     if n != before.get(k, 0))
+        graph = PLAN_GRAPHS[key]
+        x = graph.input.clone()
+        timers = {
+            True: replay_ms(graph),
+            False: cuda_ms(lambda: encode_frames_plan(x, **dict(key[4])),
+                           reps=3)}
+        for graphs in (True, False):
+            secs, stages = sorted(runs[graphs], key=lambda r: r[0])[1]
+            dev_ms, api = profile_encode(
+                lambda: encode_port(pcm16, 44100, 16, analysis, dev,
+                                    graphs=graphs, **kw), batches)
+            name = "graphs" if graphs else "graphs=False"
+            timer = ("events around back-to-back replays" if graphs
+                     else "events around one eager call")
+            prof = "not measured" if dev_ms is None else f"{dev_ms:.2f} ms"
+            print(f"encode {analysis} {mode} ({name}): {mb / secs:.2f} MB/s "
+                  f"of PCM (median of 3: {secs:.3f} s; runs "
+                  f"{', '.join(f'{r[0]:.3f}' for r in runs[graphs])}); in "
+                  "the median run " + ", ".join(
+                      f"{k} {v:.1f} ms ({v / batches:.2f} a batch)"
+                      for k, v in stages.items())
+                  + f"; a batch: device {timers[graphs]:.2f} ms ({timer}), "
+                  f"profiler kernel and copy time {prof}, {api:.0f} host "
+                  f"CUDA API calls; on {card()}")
+        print(f"  its graph {graph_name(key)}: memory_reserved "
+              f"+{graph.reserved_bytes / 2**20:.1f} MiB, warm-up and "
+              f"capture {graph.capture_seconds:.2f} s")
 
 
 def stage_ms(path: str, names) -> dict:
@@ -1613,6 +1792,7 @@ def main() -> int:
 
     # ---- 3./4. the encode path, counted ----
     kernels.reset_launches()
+    before = graph_replays()
     data16, penc = check_identical("16-bit 44.1 kHz 120 s", pcm16, 44100, 16,
                                    root, dev)
     fallback = penc.fallback_frames
@@ -1628,7 +1808,10 @@ def main() -> int:
           f"compression ratio {ratio:.4f}")
     launches = dict(kernels.LAUNCHES)
 
-    # ---- 5. the encode path went through its kernels ----
+    # ---- 5. the encode path went through its kernels and graphs ----
+    frames16, frames24 = len(pcm16) // 2 // 4096, len(pcm24) // 2 // 4096
+    check_replays("encode path (phases 3-4)", before,
+                  2 * batch_replays(frames16) + batch_replays(frames24))
     print(f"encode-path launches: {launches}; fallback frames: {fallback}")
     for r in results:
         if launches[r["name"]] <= 0:
@@ -1744,8 +1927,6 @@ def main() -> int:
 
     # ---- 16. encode rate in each mode ----
     mb = len(pcm16) * 2 / 1e6
-    enc_stages = ("encode.dispatch", "encode.download", "encode.md5",
-                  "encode.assemble")
     for mode, kw in (("frame-packed", {}),
                      *((m, v[0]) for m, v in ENCODE_MODES.items())):
         runs = []
@@ -1754,13 +1935,16 @@ def main() -> int:
             t = time.perf_counter()
             encode_port(pcm16, 44100, 16, "f64", dev, **kw)
             runs.append((time.perf_counter() - t,
-                         stage_ms(trace_path, enc_stages)))
+                         stage_ms(trace_path, ENCODE_STAGES)))
         secs, stages = sorted(runs, key=lambda r: r[0])[1]
         print(f"encode f64 {mode}: {mb / secs:.2f} MB/s of PCM (median of "
               f"3: {secs:.3f} s for {mb:.2f} MB; runs "
               f"{', '.join(f'{r[0]:.3f}' for r in runs)}; in the median run "
               + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
               + f") on {card()}")
+
+    # ---- 17. CUDA graphs against eager planning ----
+    compare_graphs(dev, pcm16, trace_path)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

@@ -15,6 +15,7 @@ PyTorch versions for CUDA tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _lib = None
 
-# kernel launches, counted by each wrapper where it launches its kernel
+# kernel launches, counted by each wrapper where it launches its kernel;
+# a CUDA graph's kernels count at each replay (``add_launches``)
 LAUNCHES = {"splice_subframes": 0, "pack_symbols": 0, "autocorr_levinson": 0,
             "predict_lpc": 0, "parse_frame_bodies": 0}
 
@@ -45,6 +47,29 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Count the launches made inside the block into the dict it yields
+    instead of ``LAUNCHES``, which leaves the block as it entered.  For a
+    CUDA graph capture: it enqueues kernels into the graph and runs none;
+    ``add_launches(tally)`` counts them each time the graph runs."""
+    before = dict(LAUNCHES)
+    tally: dict = {}
+    try:
+        yield tally
+    finally:
+        for k, n in before.items():
+            tally[k] = LAUNCHES[k] - n
+            LAUNCHES[k] = n
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches of one replay of a graph whose capture
+    ``launches_apart`` tallied."""
+    for k, n in tally.items():
+        LAUNCHES[k] += n
 
 
 def _sources():

@@ -7,6 +7,8 @@ counterpart: the port uses ``torch.cumsum``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # sentinel "invalid candidate" bit cost
@@ -31,6 +33,21 @@ def analysis_dtype(analysis: str) -> torch.dtype:
         return torch.float64
     raise ValueError(f"analysis must be 'auto', 'f32' or 'f64', "
                      f"not {analysis!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, built on first
+    use and then the same tensor for every call with the same values,
+    dtype and device.  Callers must not write to it.
+
+    The planner's small tables come from here so that a CUDA graph
+    capture (which forbids the synchronous host-to-device copy that
+    ``torch.tensor`` makes) finds them on the card.  Nothing is evicted:
+    a captured graph reads the tensor by its address.
+    """
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import BIG, delay
+from .common import BIG, delay, device_constant
 
 I32_MAX = (1 << 31) - 1
 I32_MIN = -(1 << 31)
@@ -52,7 +52,7 @@ def plan_narrow(x: torch.Tensor):
          .sum(dim=1) for k in range(5)], dim=1)
     order = torch.argmin(suffix, dim=1)  # ties -> lowest
 
-    wsel = torch.tensor(_BINOM, dtype=torch.int64, device=x.device)[order]
+    wsel = device_constant(_BINOM, torch.int64, x.device)[order]
     res = None
     for i in range(5):
         t = lags[i] * wsel[:, i:i + 1]

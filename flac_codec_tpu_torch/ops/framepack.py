@@ -46,10 +46,11 @@ def crc16_neg_pow_table(nbits: int) -> np.ndarray:
     return out
 
 
-@lru_cache(maxsize=4)
+@lru_cache(maxsize=None)
 def _crc_planes(W: int, device: str) -> torch.Tensor:
     """(W*32, 16) float32 bit planes of the weight table: row w*32 + j
-    weights bit j (MSB-first) of word w."""
+    weights bit j (MSB-first) of word w.  Never evicted: a captured CUDA
+    graph reads the tensor by its address."""
     t = crc16_neg_pow_table(W * 32).astype(np.int64)
     planes = (t[:, None] >> np.arange(16)[None, :]) & 1
     return torch.as_tensor(planes, dtype=torch.float32, device=device)

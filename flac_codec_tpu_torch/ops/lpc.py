@@ -21,6 +21,7 @@ operation order.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -36,9 +37,13 @@ MAX_SHIFT = 15
 MIN_SHIFT = -16
 
 
+@functools.lru_cache(maxsize=None)
 def window_array(kind, n: int, dtype: torch.dtype,
                  device) -> torch.Tensor:
-    """Static window coefficients (host-generated, then moved)."""
+    """Static window coefficients (host-generated, then moved), built on
+    first use and then the same tensor for every call with the same
+    arguments (``common.device_constant`` says why; callers must not
+    write to it)."""
     return torch.as_tensor(host_window(kind, n), dtype=dtype, device=device)
 
 

@@ -46,10 +46,27 @@ def batch_mesh(devices: Optional[Sequence] = None) -> tuple:
     return tuple(mesh)
 
 
+# the process's shard streams, by (device, how many times the device was
+# listed before): made at first use, then reused by every encoder and
+# decoder, so a configuration's CUDA graphs (keyed by stream) are too
+_STREAMS: dict = {}
+
+
 def shard_streams(mesh: Sequence[torch.device]) -> list:
-    """One new stream per CUDA entry of ``mesh`` (None for the CPU)."""
-    return [torch.cuda.Stream(device=d) if d.type == "cuda" else None
-            for d in mesh]
+    """A stream per CUDA entry of ``mesh`` (None for the CPU): the k-th
+    entry naming a device gets the process's k-th shard stream of that
+    device, so entries never share a stream, and a device listed once
+    always gets the same stream."""
+    out = []
+    for i, d in enumerate(mesh):
+        if d.type != "cuda":
+            out.append(None)
+            continue
+        key = (d, mesh[:i].count(d))
+        if key not in _STREAMS:
+            _STREAMS[key] = torch.cuda.Stream(device=d)
+        out.append(_STREAMS[key])
+    return out
 
 
 @contextlib.contextmanager

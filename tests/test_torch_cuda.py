@@ -20,8 +20,11 @@ from chip_smoke import (WINDOW_EDGE_CASES, bit_equal, int32_edge_rows,
                         window_edge_inputs)
 from flac_codec_tpu_torch import kernels, native
 from flac_codec_tpu_torch.bitio import BitWriter
-from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
+from flac_codec_tpu_torch.convert import plan_to_numpy
+from flac_codec_tpu_torch.decode import (Decoder, FlacSampleReader, Verified,
+                                         verify)
 from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+from flac_codec_tpu_torch.ops import encode_batch as teb
 from flac_codec_tpu_torch.ops import framescan as tfs
 from flac_codec_tpu_torch.ops import lpc as tlpc
 from flac_codec_tpu_torch.ops import packpanel as tpp
@@ -31,6 +34,7 @@ from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS, int64_rows,
                                                      predict_lpc)
 from flac_codec_tpu_torch.parallel.batch import BatchEncoder
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
+from flac_codec_tpu_torch.parallel.mesh import batch_mesh, shard_streams
 
 pytestmark = pytest.mark.cuda
 
@@ -409,6 +413,169 @@ def test_two_shards_on_one_card(dev, mode):
     assert pcm.device == mesh[0]
     np.testing.assert_array_equal(pcm.cpu().numpy().reshape(-1), inter)
     assert kernels.LAUNCHES["predict_lpc"] > n0
+
+
+# every encode mode, as BatchEncoder arguments
+GRAPH_MODES = {"frame_packed": {}, **ENCODE_MODES}
+
+
+def _replays() -> dict:
+    """Each captured plan graph's replays so far, by key."""
+    return {k: g.replays for k, g in teb.PLAN_GRAPHS.items()}
+
+
+def _replayed(before: dict) -> dict:
+    """The graphs replayed since ``before`` (``_replays()``), with the
+    number of replays."""
+    return {k: n - before.get(k, 0) for k, n in _replays().items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_graphs_eager_and_host_write_the_same_bytes(dev, mode):
+    """Three whole 4-frame batches, a short batch of 2 (padded to 4, so
+    it replays the same graph) and a partial tail: graph replays,
+    ``graphs=False`` and the host encoder write the same bytes."""
+    inter, n = _stereo_clip(16, frames=14)
+    want = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    kw = dict(batch_frames=4, analysis="f64", device=dev,
+              **GRAPH_MODES[mode])
+    before = _replays()
+    graphs = _encode_on(BatchEncoder, inter, n, 16, 44100, **kw)
+    replayed = _replayed(before)
+    eager = _encode_on(BatchEncoder, inter, n, 16, 44100, graphs=False,
+                       **kw)
+    assert graphs == want
+    assert eager == want
+    assert list(replayed.values()) == [4]
+    assert _replayed(before) == replayed
+
+
+def test_f32_with_graphs_verifies(dev):
+    inter, n = _stereo_clip(16, frames=14)
+    data = _encode_on(BatchEncoder, inter, n, 16, 44100, batch_frames=4,
+                      analysis="f32", device=dev)
+    assert verify(io.BytesIO(data)) == Verified.MD5_MATCH
+
+
+def test_two_shards_on_one_card_replay_two_graphs(dev):
+    """cuda:0 listed twice: a graph per shard stream, the host encoder's
+    bytes; the short batch's second shard holds only padding and is not
+    planned."""
+    mesh = batch_mesh([dev, dev])
+    inter, n = _stereo_clip(16, frames=14)
+    want = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    before = _replays()
+    got = _encode_on(BatchEncoder, inter, n, 16, 44100, batch_frames=6,
+                     analysis="f64", mesh=mesh)
+    replayed = _replayed(before)
+    assert got == want
+    graphs = {teb.PLAN_GRAPHS[k].stream: r for k, r in replayed.items()}
+    s0, s1 = shard_streams(mesh)
+    assert graphs == {s0: 3, s1: 2}
+
+
+def test_two_option_sets_interleaved_on_one_stream(dev):
+    """Three live encoders batch by batch on one stream: two option sets
+    (two graphs) and the first set twice (one graph, two users); each
+    writes its own host encoder's bytes."""
+    inter, n = _stereo_clip(16, frames=10)
+    opts = (Options.best(), Options.best().with_max_lpc_order(8),
+            Options.best())
+    wants, bufs, encs = [], [], []
+    for o in opts:
+        for out, cls, kw in ((wants, FlacSampleWriter, {}),
+                             (bufs, BatchEncoder, dict(
+                                 batch_frames=2, analysis="f64",
+                                 device=dev))):
+            buf = io.BytesIO()
+            enc = cls(buf, o, 44100, 16, 2, total_samples=n, **kw)
+            if cls is FlacSampleWriter:
+                enc.write(inter)
+                enc.finalize()
+            else:
+                encs.append(enc)
+            out.append(buf)
+    before = _replays()
+    step = 2 * 4096 * 2
+    for lo in range(0, len(inter), step):
+        for enc in encs:
+            enc.write(inter[lo:lo + step])
+    for enc in encs:
+        enc.finalize()
+    replayed = _replayed(before)
+    assert [b.getvalue() for b in bufs] == [w.getvalue() for w in wants]
+    assert sorted(replayed.values()) == [5, 10]
+
+
+def test_launches_count_each_replay(dev):
+    """LAUNCHES after an encode is the captured tally once per replay,
+    plus once for the warm-up where the graph was captured here."""
+    inter, n = _stereo_clip(16, frames=10)
+    before = _replays()
+    kernels.reset_launches()
+    _encode_on(BatchEncoder, inter, n, 16, 44100, batch_frames=3,
+               analysis="f64", device=dev)
+    launches = dict(kernels.LAUNCHES)
+    (key, replays), = _replayed(before).items()
+    tally = teb.PLAN_GRAPHS[key].tally
+    assert replays == 4
+    assert tally == {**dict.fromkeys(tally, 0), "autocorr_levinson": 1,
+                     "pack_symbols": 2, "splice_subframes": 1}
+    runs = replays + (key not in before)
+    assert launches == {k: runs * t for k, t in tally.items()}
+
+
+def _card_leaves(plan: dict, rows: int) -> dict:
+    """A plan's leaves on the host, one row per frame (the residual blob
+    without its two trailing words)."""
+    out = {}
+    for k, v in plan_to_numpy(plan).items():
+        if k == "channels":
+            for s, ch in enumerate(v):
+                out.update({f"{s}.{ck}": cv.reshape(rows, -1)
+                            for ck, cv in ch.items()})
+        elif k != "packed_meta":
+            out[k] = (v[:-2] if k == "packed_words" else v).reshape(rows,
+                                                                   -1)
+    return out
+
+
+@pytest.mark.parametrize("pad", ["silence", "full_scale_noise"])
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_padding_rows_leave_real_rows_unchanged_on_card(dev, mode, pad):
+    """3 real frames and 5 padding frames through a captured graph: the
+    replay equals the eager plan of the same batch, and its real rows
+    equal the eager plan of the 3 frames alone, flags included (silence
+    takes the autocorrelation's 0/0 path, noise the verbatim
+    fallback)."""
+    B, padded = 3, 8
+    inter, _ = _stereo_clip(16, frames=B)
+    real = np.ascontiguousarray(inter[:B * 4096 * 2].reshape(B, 4096, 2)
+                                .transpose(0, 2, 1)).astype(np.int16)
+    pcm = np.zeros((padded, 2, 4096), np.int16)
+    pcm[:B] = real
+    if pad == "full_scale_noise":
+        pcm[B:] = np.random.default_rng(8).integers(
+            -(1 << 15), 1 << 15, (padded - B, 2, 4096))
+    budget = {"plan_tree": 0}.get(mode, 18)
+    kw = dict(bits_per_sample=16, block_size=4096, max_lpc_order=12,
+              max_partition_order=6, mid_side=True, exhaustive=True,
+              window_kind=("tukey", 0.5), analysis="f64",
+              pack_budget=budget, frame_pack=mode == "frame_packed")
+    stream = shard_streams(batch_mesh([dev]))[0]
+    graph = teb.plan_graph(pcm.shape, torch.int16, stream, **kw)
+    replay = graph.replay(torch.as_tensor(pcm).to(dev))
+    stream.synchronize()
+    got = _card_leaves(replay, padded)
+    eager = _card_leaves(teb.encode_frames_plan(
+        torch.as_tensor(pcm).to(dev), **kw), padded)
+    alone = _card_leaves(teb.encode_frames_plan(
+        torch.as_tensor(real).to(dev), **kw), B)
+    assert sorted(got) == sorted(eager) == sorted(alone)
+    for k in got:
+        np.testing.assert_array_equal(got[k], eager[k], k)
+        np.testing.assert_array_equal(got[k][:B], alone[k], k)
 
 
 def _lpc_rows(rng, orders, N, sample_bits=23):
