@@ -36,10 +36,12 @@ non-zero without one, and outside a checkout).  Phases:
    SM clock under load and the cycles a step;
 7. the decode path: the three streams of phases 3-4 through the port's
    ``BatchDecoder(device="cuda")``; the PCM must equal the input exactly,
-   and ``predict_lpc`` must have launched;
+   ``predict_lpc`` must have launched, and every batch reconstructed on
+   the device must have been one replay of a reconstruct graph;
 8. every stream of ``tests/data/conformance/`` through
    ``BatchDecoder(device="cuda", batch_frames=4)``; its PCM must hash to
-   the manifest's ``pcm_md5``;
+   the manifest's ``pcm_md5``, each device batch one replay, with the
+   number of graphs captured and their seconds;
 9. the frame-body parser ``parse_frame_bodies`` (K4) against its plain
    version, bit for bit and ``ok`` included: seeded small-block streams
    and conformance streams in every construct (constant, verbatim, FIXED,
@@ -48,18 +50,23 @@ non-zero without one, and outside a checkout).  Phases:
    garbage bodies, and hand-built streams whose Rice partitions meet the
    edges of K4's 1024-bit windows (``window_edge_stream``); then against
    the native raw parse on the first 256-frame batch of the 120 s and
-   24-bit streams; times;
+   24-bit streams, and on 200 of its lanes padded to 256 (``nbits`` 0)
+   in a zero-filled byte buffer, as the decoder pads a batch; times;
 10. the device-parse decode path: the three streams through
    ``BatchDecoder(device="cuda", device_parse=True)``; the PCM must equal
-   the input, K4 and ``predict_lpc`` must have launched, and no batch may
-   fall back to the host parse but the one holding the short tail;
-11. the conformance corpus through the device-parse path (``pcm_md5``);
+   the input, K4 and ``predict_lpc`` must have launched, no batch may
+   fall back to the host parse but the one holding the short tail, and
+   each device batch must have been one parse-graph and one
+   reconstruct-graph replay;
+11. the conformance corpus through the device-parse path (``pcm_md5``,
+   replays as in phase 8);
 12. a slot past one block's shared memory: 1 s of 8-channel 24-bit
    96 kHz at block 16384 (a 420 KB frame slot; its 5 frames padded to a
    256-frame batch) encoded on the card, f64
    byte-identical to ``FlacSampleWriter`` and decoded back losslessly
-   through both parse paths; and K2 against its plain version on
-   60,000-word panels;
+   through both parse paths (their 5 frames padded to a 64-frame
+   bucket; each decode graph's memory printed); and K2 against its
+   plain version on 60,000-word panels;
 13. encode MB/s of PCM in f64 and f32, and decode MB/s of PCM with the
    host parse and with the device parse, with their stage times (median
    of 3, synchronised);
@@ -73,7 +80,8 @@ non-zero without one, and outside a checkout).  Phases:
    ``batch_mesh([cuda:0, cuda:0])`` (two shards on two streams of one
    card), the 120 s clip encoded frame-packed and residual-only (bytes
    of phase 3, counted) and the three streams of phases 3-4 decoded with
-   the host parse (PCM equal to the input on ``cuda:0``, K3 counted);
+   the host parse (PCM equal to the input on ``cuda:0``, K3 counted, a
+   reconstruct replay per shard holding a real frame);
 16. encode MB/s of PCM in each mode (frame-packed, residual-only, plan
    tree), f64, median of 3, with stage times;
 17. CUDA graphs against ``graphs=False`` (eager planning) in each mode in
@@ -81,12 +89,20 @@ non-zero without one, and outside a checkout).  Phases:
    times, the device ms of a batch (CUDA events around back-to-back
    replays, and around one eager call), and, by ``torch.profiler`` over
    one encode, the device's kernel and copy time and the host's CUDA
-   API calls a batch.
+   API calls a batch;
+18. decode with CUDA graphs against ``graphs=False``, both streams of
+   phases 3-4 through both parse paths, in turns: MB/s (median of 3)
+   with stage times, the device ms of a batch in each graph (CUDA events
+   around back-to-back replays, and around one eager call), the
+   profiler's kernel and copy time and host CUDA API calls a batch, and
+   each graph's ``memory_reserved``.
 
-Every encoder here runs with CUDA graphs on (the default) but those of
-phase 17 that ask for ``graphs=False``; each graph's capture prints the
-growth of ``torch.cuda.memory_reserved()``, and phases 3-4, 12, 14 and
-15 check that every batch was a replay.  Every time is printed beside the card's ``nvidia-smi`` name and power
+Every encoder and decoder here runs with CUDA graphs on (the default)
+but those of phases 17 and 18 that ask for ``graphs=False``; each
+graph's capture prints the growth of ``torch.cuda.memory_reserved()``,
+phases 3-4, 12, 14 and 15 check that every encode batch was a replay,
+and phases 7, 8, 10, 11, 12, 13 and 15 that every decode batch was.
+Every time is printed beside the card's ``nvidia-smi`` name and power
 limit.  Any failed check raises.  The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1295,7 +1311,7 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
     import torch
 
     from flac_codec_tpu_torch.ops.framescan import (
-        parse_frame_bodies, parse_frame_bodies_plain)
+        byte_capacity, parse_frame_bodies, parse_frame_bodies_plain)
 
     t0 = time.perf_counter()
     corpus = os.path.join(root, "tests", "data", "conformance")
@@ -1362,6 +1378,28 @@ def check_parse(dev, root, data16: bytes, data24: bytes) -> dict:
     args, raw = full["120 s 16-bit"]
     got = k4_vs_plain("120 s 16-bit", args)
     B, C, N = got["buf"].shape
+    # the decoder's padded batch: 200 real lanes in 256 (the padding with
+    # nbits 0), the bytes from the first body zero up to the capacity
+    n = 200
+    data, off, nbits, assign = args[:4]
+    lo = int(off[0])
+    hi = int(off[n - 1]) + int(nbits[n - 1]) // 8
+    padded = [torch.zeros(byte_capacity(hi - lo), dtype=torch.uint8,
+                          device=dev)] + [torch.zeros_like(a)
+                                          for a in (off, nbits, assign)]
+    padded[0][:hi - lo] = data[lo:hi]
+    for dst, src in zip(padded[1:], (off - lo, nbits, assign)):
+        dst[:n] = src[:n]
+    pad = k4_vs_plain("120 s 16-bit, 200 lanes padded to 256",
+                      padded + list(args[4:]))
+    if not (bool(pad["ok"][:n].all()) and not bool(pad["ok"][n:].any())
+            and all(torch.equal(pad[k][:n], got[k][:n]) for k in got)
+            and not any(bool(pad[k][n:].any()) for k in got)):
+        raise AssertionError("parse_frame_bodies: padded lanes or a zero "
+                             "byte tail changed a real lane")
+    print(f"K4 parse_frame_bodies: {n} lanes padded to {B} (nbits 0) in a "
+          f"{padded[0].shape[0]}-byte zero-filled buffer bit-exact with the "
+          "plain version; the real lanes as unpadded, the padding zero")
     # body bytes (and offsets, lengths, assignments) read once; samples,
     # parameters and ok written once; ~10 operations per decoded symbol
     # (each sample, warm-up and LPC coefficient)
@@ -1417,11 +1455,15 @@ def check_slot_repair(dev) -> None:
     check_replays("8 ch 24-bit block 16384 encode", before,
                   batch_replays(rate // block))
     for device_parse in (False, True):
+        before = set(decode_graphs())
         pcm, dec = decode_port(streams[1], dev, device_parse=device_parse)
         if not np.array_equal(pcm.cpu().numpy().reshape(-1), inter):
             raise AssertionError("8-channel 24-bit block-16384 stream does "
                                  f"not decode losslessly (device_parse="
                                  f"{device_parse})")
+        report_captures("8 ch 24-bit block 16384 decode (device_parse="
+                        f"{device_parse}, {dec.device_frames} frames)",
+                        before)
     print(f"slot past shared memory: 8 ch 24-bit block {block}, K1 slot "
           f"{W} words ({W * 4} bytes), f64 byte-identical to "
           f"FlacSampleWriter ({len(streams[1])} bytes, "
@@ -1445,35 +1487,131 @@ def check_slot_repair(dev) -> None:
           f"({P * 4} bytes) bit-exact, {int(ovf.sum())} overflow rows")
 
 
+def decode_graphs() -> dict:
+    """Every decode graph of the process, by ("parse" or "reconstruct",
+    *its key)."""
+    from flac_codec_tpu_torch.ops.framescan import PARSE_GRAPHS
+    from flac_codec_tpu_torch.parallel.batch_decode import RECONSTRUCT_GRAPHS
+
+    out = {("parse",) + k: g for k, g in PARSE_GRAPHS.items()}
+    out.update({("reconstruct",) + k: g
+                for k, g in RECONSTRUCT_GRAPHS.items()})
+    return out
+
+
+def decode_replays() -> tuple:
+    """(parse, reconstruct) graph replays so far, summed."""
+    total = {"parse": 0, "reconstruct": 0}
+    for key, g in decode_graphs().items():
+        total[key[0]] += g.replays
+    return total["parse"], total["reconstruct"]
+
+
+def decode_graph_name(key) -> str:
+    """A decode graph's key, short."""
+    if key[0] == "parse":
+        _, device, stream, frames, cap, block, ch, bps = key
+        return (f"parse {device} stream {stream:#x} {frames} lanes, {cap} "
+                f"bytes, block {block}, {ch} ch {bps}-bit")
+    _, device, stream, shape, mode, taps = key
+    return (f"reconstruct {device} stream {stream:#x} {tuple(shape)} "
+            f"{mode} taps {taps}")
+
+
+def report_captures(label: str, before) -> list:
+    """Print each decode graph captured since ``before`` (a set of
+    ``decode_graphs()`` keys) with the growth of ``memory_reserved`` its
+    capture left and its seconds, then their count and totals; returns
+    the new graphs."""
+    new = [(k, g) for k, g in decode_graphs().items() if k not in before]
+    for key, g in new:
+        tally = {k: v for k, v in g.tally.items() if v}
+        print(f"  captured {decode_graph_name(key)}: memory_reserved "
+              f"+{g.reserved_bytes / 2**20:.1f} MiB, warm-up and capture "
+              f"{g.capture_seconds:.3f} s, launches a replay {tally}")
+    print(f"{label}: {len(new)} decode graphs captured, "
+          f"{sum(g.capture_seconds for _, g in new):.2f} s of warm-up and "
+          f"capture, memory_reserved +"
+          f"{sum(g.reserved_bytes for _, g in new) / 2**20:.1f} MiB")
+    return new
+
+
+def padded_shards(n: int, batch_frames: int, shards: int) -> int:
+    """Shards of an n-frame batch, padded to its frame bucket (the JAX
+    decoder's rule) and cut into ``shards``, that hold a real frame."""
+    bucket = batch_frames
+    while bucket // 2 >= n and bucket > 64:
+        bucket //= 2
+    sizes = [len(c) for c in np.array_split(np.arange(bucket), shards)]
+    firsts = np.cumsum([0] + sizes[:-1])
+    return sum(1 for f, size in zip(firsts, sizes) if size and f < n)
+
+
 def decode_port(data: bytes, dev, batch_frames=BATCH_FRAMES,
-                device_parse=False, mesh=None):
+                device_parse=False, mesh=None, graphs=True, stats=None):
+    """Decode ``data`` on the card batch by batch.  With graphs, each
+    batch reconstructed on the device must have been one replay of a
+    reconstruct graph per shard holding a real frame, and, when the
+    device parsed it, one parse-graph replay; a batch the host decoded
+    (a tail) none.  ``stats`` gets the device batches and replays
+    added."""
     import torch
 
     from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 
+    shards = 1 if mesh is None else len(mesh)
+    parts = []
     with BatchDecoder(io.BytesIO(data), batch_frames=batch_frames,
-                      device=dev, device_parse=device_parse,
-                      mesh=mesh) as dec:
-        pcm = dec.read_all_device()
+                      device=dev, device_parse=device_parse, mesh=mesh,
+                      graphs=graphs) as dec:
+        while True:
+            frames, fallbacks = dec.device_frames, dec.parse_fallbacks
+            parse0, recon0 = decode_replays()
+            flat = dec.read_batch_interleaved()
+            if flat is None:
+                break
+            parts.append(flat)
+            n = dec.device_frames - frames
+            fell_back = dec.parse_fallbacks != fallbacks
+            parse, recon = decode_replays()
+            parse, recon = parse - parse0, recon - recon0
+            want = padded_shards(n, batch_frames, shards) if n else 0
+            want_parse = (1 if n and dec._device_parse and not fell_back
+                          else parse if fell_back else 0)
+            if not graphs:
+                want = want_parse = 0
+            if (recon, parse) != (want, want_parse) or parse > 1:
+                raise AssertionError(
+                    f"a batch of {n} device frames (device_parse="
+                    f"{device_parse}, fallback {fell_back}) made {recon} "
+                    f"reconstruct and {parse} parse replays, want {want} "
+                    f"and {want_parse}")
+            if stats is not None and n:
+                stats["batches"] = stats.get("batches", 0) + 1
+                stats["reconstruct"] = stats.get("reconstruct", 0) + recon
+                stats["parse"] = stats.get("parse", 0) + parse
+        pcm = torch.cat(parts) if parts else torch.zeros(
+            (0, dec.streaminfo.channels), dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
     return pcm, dec
 
 
 def check_corpus(root, dev, device_parse=False):
     """Phases 8 and 11: every conformance stream decodes on the card to
-    its manifest's pcm_md5."""
+    its manifest's pcm_md5, every device batch a graph replay."""
     from flac_codec_tpu_torch import kernels
 
     corpus = os.path.join(root, "tests", "data", "conformance")
     with open(os.path.join(corpus, "manifest.json")) as f:
         manifest = json.load(f)
     n0 = dict(kernels.LAUNCHES)
-    frames = [0, 0]
+    before = set(decode_graphs())
+    frames, stats = [0, 0], {}
     for name in sorted(manifest):
         with open(os.path.join(corpus, name), "rb") as f:
             data = f.read()
         pcm, dec = decode_port(data, dev, batch_frames=4,
-                               device_parse=device_parse)
+                               device_parse=device_parse, stats=stats)
         flat = pcm.cpu().numpy().reshape(-1).astype("<i8")
         rec = manifest[name]
         if (pcm.device.type != "cuda" or len(flat) != rec["total_samples"]
@@ -1483,11 +1621,16 @@ def check_corpus(root, dev, device_parse=False):
                                  "card does not match its pcm_md5")
         frames[0] += dec.device_frames
         frames[1] += dec.host_frames
-    launched = {k: kernels.LAUNCHES[k] - n0[k]
+    launches = {k: kernels.LAUNCHES[k] - n0[k]
                 for k in ("predict_lpc", "parse_frame_bodies")}
     print(f"conformance corpus (device_parse={device_parse}): "
           f"{len(manifest)} streams match pcm_md5 on the card; {frames[0]} "
-          f"device frames, {frames[1]} host frames, launches {launched}")
+          f"device frames, {frames[1]} host frames, launches {launches}; "
+          f"{stats.get('batches', 0)} device batches, each one replay: "
+          f"{stats.get('reconstruct', 0)} reconstruct and "
+          f"{stats.get('parse', 0)} parse replays")
+    report_captures(f"conformance corpus (device_parse={device_parse})",
+                    before)
 
 
 # the encode modes beside the default frame-packed one: BatchEncoder
@@ -1568,8 +1711,9 @@ def check_mesh(dev, pcm16, data16, streams) -> None:
                   f"{enc.device_frames} device frames, {enc.fallback_frames}"
                   f" fallback frames; launches {launches}")
         kernels.reset_launches()
+        before, stats = set(decode_graphs()), {}
         for label, data, inter in streams:
-            pcm, dec = decode_port(data, dev, mesh=mesh)
+            pcm, dec = decode_port(data, dev, mesh=mesh, stats=stats)
             if pcm.device != mesh[0] or not np.array_equal(
                     pcm.cpu().numpy().reshape(-1), inter):
                 raise AssertionError(f"mesh {name}: {label} decoded PCM "
@@ -1578,7 +1722,10 @@ def check_mesh(dev, pcm16, data16, streams) -> None:
         check_launches(f"mesh {name} decode path", launches,
                        ("predict_lpc",))
         print(f"mesh {name}: the three streams decode losslessly onto "
-              f"{mesh[0]}; launches {launches}")
+              f"{mesh[0]}; launches {launches}; {stats['batches']} device "
+              f"batches, {stats['reconstruct']} reconstruct replays (one "
+              "per shard holding a real frame)")
+        report_captures(f"mesh {name} decode", before)
 
 
 def graph_replays() -> dict:
@@ -1653,7 +1800,7 @@ def replay_ms(graph, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def profile_encode(fn, batches: int) -> tuple:
+def profile_batches(fn, batches: int) -> tuple:
     """``torch.profiler`` over ``fn()``: (device ms a batch, the kernels'
     and copies' own device time, or None where the profiler saw none;
     host CUDA API calls a batch, every ``cuda*`` call counted)."""
@@ -1717,7 +1864,7 @@ def compare_graphs(dev, pcm16, trace_path: str) -> None:
                            reps=3)}
         for graphs in (True, False):
             secs, stages = sorted(runs[graphs], key=lambda r: r[0])[1]
-            dev_ms, api = profile_encode(
+            dev_ms, api = profile_batches(
                 lambda: encode_port(pcm16, 44100, 16, analysis, dev,
                                     graphs=graphs, **kw), batches)
             name = "graphs" if graphs else "graphs=False"
@@ -1736,6 +1883,89 @@ def compare_graphs(dev, pcm16, trace_path: str) -> None:
         print(f"  its graph {graph_name(key)}: memory_reserved "
               f"+{graph.reserved_bytes / 2**20:.1f} MiB, warm-up and "
               f"capture {graph.capture_seconds:.2f} s")
+
+
+# the decode stages of each parse path (device_parse False / True)
+DECODE_STAGES = {False: ("decode.parse", "decode.reconstruct"),
+                 True: ("decode.scan", "decode.upload",
+                        "decode.parse_device", "decode.reconstruct")}
+
+
+def compare_decode_graphs(dev, clips, trace_path: str) -> None:
+    """Phase 18: the 16-bit and 24-bit streams decoded with CUDA graphs
+    and with ``graphs=False`` through both parse paths, in turns."""
+    from flac_codec_tpu_torch.ops.framescan import parse_batch
+    from flac_codec_tpu_torch.parallel.batch_decode import (
+        _device_reconstruct, recon_views)
+
+    for label, data, inter, width in clips:
+        mb = len(inter) * width / 1e6
+        for device_parse in (False, True):
+            parse = "device" if device_parse else "host"
+            before = {k: g.replays for k, g in decode_graphs().items()}
+            runs, stats = {True: [], False: []}, {}
+            for i in range(3):
+                for graphs in ((True, False) if i % 2 == 0
+                               else (False, True)):
+                    open(trace_path, "w").close()
+                    stats.clear()
+                    t = time.perf_counter()
+                    decode_port(data, dev, device_parse=device_parse,
+                                graphs=graphs, stats=stats)
+                    runs[graphs].append((
+                        time.perf_counter() - t,
+                        stage_ms(trace_path, DECODE_STAGES[device_parse])))
+            batches = stats["batches"]
+            # the graphs of the full batch: those replayed most
+            used = {}
+            for key, g in decode_graphs().items():
+                n = g.replays - before.get(key, 0)
+                if n and n > used.get(key[0], (None, None, 0))[2]:
+                    used[key[0]] = (key, g, n)
+            # device ms a batch, by graph: events around back-to-back
+            # replays, and around one eager call on the same inputs
+            timers = {True: {}, False: {}}
+            for kind, (key, g, _) in sorted(used.items()):
+                x = g.input.clone()
+                if kind == "parse":
+                    frames, _, block, ch, bps = key[3:]
+                    fn = functools.partial(parse_batch, x, frames, block, ch,
+                                           bps)
+                else:
+                    shape, mode, taps = key[3:]
+                    fn = functools.partial(
+                        lambda x, s, m, t: _device_reconstruct(
+                            *recon_views(x, *s), mode=m, taps=t),
+                        x, shape, mode, taps)
+                timers[True][kind] = replay_ms(g)
+                timers[False][kind] = cuda_ms(fn, reps=3)
+            for graphs in (True, False):
+                secs, stages = sorted(runs[graphs], key=lambda r: r[0])[1]
+                dev_ms, api = profile_batches(
+                    lambda: decode_port(data, dev, device_parse=device_parse,
+                                        graphs=graphs), batches)
+                name = "graphs" if graphs else "graphs=False"
+                timer = ("events around back-to-back replays" if graphs
+                         else "events around one eager call")
+                prof = ("not measured" if dev_ms is None
+                        else f"{dev_ms:.3f} ms")
+                print(f"decode {label} ({parse} parse, {name}): "
+                      f"{mb / secs:.2f} MB/s of PCM (median of 3: "
+                      f"{secs:.3f} s; runs "
+                      f"{', '.join(f'{r[0]:.3f}' for r in runs[graphs])}); "
+                      "in the median run " + ", ".join(
+                          f"{k} {v:.2f} ms ({v / batches:.3f} a batch)"
+                          for k, v in stages.items())
+                      + "; a batch: device " + " + ".join(
+                          f"{k} {v:.3f} ms" for k, v in
+                          sorted(timers[graphs].items()))
+                      + f" ({timer}), profiler kernel and copy time {prof}, "
+                      f"{api:.0f} host CUDA API calls ({batches} device "
+                      f"batches); on {card()}")
+            for key, g, n in used.values():
+                print(f"  its graph {decode_graph_name(key)}: "
+                      f"memory_reserved +{g.reserved_bytes / 2**20:.1f} MiB, "
+                      f"warm-up and capture {g.capture_seconds:.3f} s")
 
 
 def stage_ms(path: str, names) -> dict:
@@ -1828,8 +2058,9 @@ def main() -> int:
                ("24-bit 96 kHz 20 s f64", data24, pcm24),
                ("16-bit 44.1 kHz 120 s f32", data32, pcm16))
     kernels.reset_launches()
+    before, stats = set(decode_graphs()), {}
     for label, data, inter in streams:
-        pcm, dec = decode_port(data, dev)
+        pcm, dec = decode_port(data, dev, stats=stats)
         if pcm.device.type != "cuda" or not np.array_equal(
                 pcm.cpu().numpy().reshape(-1), inter):
             raise AssertionError(f"{label}: decoded PCM differs from the "
@@ -1837,7 +2068,9 @@ def main() -> int:
         print(f"decode {label}: lossless on the card, {dec.device_frames} "
               f"device frames, {dec.host_frames} host frames")
     launches = dict(kernels.LAUNCHES)
-    print(f"decode-path launches: {launches}")
+    print(f"decode-path launches: {launches}; {stats['batches']} device "
+          f"batches, each one reconstruct replay ({stats['reconstruct']})")
+    report_captures("decode path (phase 7)", before)
     if launches["predict_lpc"] <= 0:
         raise AssertionError("kernel predict_lpc was not launched on the "
                              "decode path")
@@ -1852,8 +2085,9 @@ def main() -> int:
 
     # ---- 10. the device-parse decode path, counted ----
     kernels.reset_launches()
+    before, stats = set(decode_graphs()), {}
     for label, data, inter in streams:
-        pcm, dec = decode_port(data, dev, device_parse=True)
+        pcm, dec = decode_port(data, dev, device_parse=True, stats=stats)
         if pcm.device.type != "cuda" or not np.array_equal(
                 pcm.cpu().numpy().reshape(-1), inter):
             raise AssertionError(f"{label}: device-parse decode differs from "
@@ -1867,7 +2101,10 @@ def main() -> int:
               f"{dec.device_frames} device frames, {dec.host_frames} host "
               f"frame, {dec.parse_fallbacks} fallback batch (the tail)")
     launches = dict(kernels.LAUNCHES)
-    print(f"device-parse decode-path launches: {launches}")
+    print(f"device-parse decode-path launches: {launches}; "
+          f"{stats['batches']} device batches, each one parse and one "
+          f"reconstruct replay ({stats['parse']}, {stats['reconstruct']})")
+    report_captures("device-parse decode path (phase 10)", before)
     for name in ("parse_frame_bodies", "predict_lpc"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -1945,6 +2182,11 @@ def main() -> int:
 
     # ---- 17. CUDA graphs against eager planning ----
     compare_graphs(dev, pcm16, trace_path)
+
+    # ---- 18. decode graphs against eager decode ----
+    compare_decode_graphs(dev, (("16-bit 120 s", data16, pcm16, 2),
+                                ("24-bit 20 s", data24, pcm24, 3)),
+                          trace_path)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

@@ -16,7 +16,8 @@ Layout mirrors the JAX package so a reader finds each counterpart:
 ``ops/`` (planner, packers, inverse predictors), ``parallel/batch.py``
 (``BatchEncoder``), ``parallel/batch_decode.py`` (``BatchDecoder``),
 ``cli/`` (``wav2flac``, ``flac2wav``) and ``convert.py`` (plan trees
-between the two).
+between the two).  ``graphs.py`` is the counterpart of ``jax.jit``: the
+CUDA graph capture that the encoder and the decoder replay per batch.
 """
 
 __version__ = "0.1.0"

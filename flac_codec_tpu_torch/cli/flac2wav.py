@@ -4,8 +4,11 @@ The port's counterpart of ``python -m flac_codec_tpu.cli flac2wav --tpu``
 (``convert_one_tpu``): it always decodes through ``flac_codec_tpu_torch.
 parallel.batch_decode.BatchDecoder`` on ``--device`` (default ``cuda``),
 one file after another on the one device, and writes the same WAV bytes.
+``--device-parse`` parses the frame bodies on the device (the JAX
+package's ``FLAC_TPU_DEVICE_PARSE=1``).
 
-    python -m flac_codec_tpu_torch.cli flac2wav [-o OUT] [--device cpu] a.flac
+    python -m flac_codec_tpu_torch.cli flac2wav [-o OUT] [--device cpu]
+        [--device-parse] a.flac
 """
 
 from __future__ import annotations
@@ -34,12 +37,15 @@ def _channel_mask(blocks):
     return None
 
 
-def convert_one(path: str, out_path: str, device="cuda") -> str:
-    """Decode ``path`` on ``device`` (PCM copied to the host per batch)
-    and write it to ``out_path`` as WAV."""
+def convert_one(path: str, out_path: str, device="cuda",
+                device_parse: bool = False) -> str:
+    """Decode ``path`` on ``device`` (PCM copied to the host per batch),
+    parsing on the device with ``device_parse``, and write it to
+    ``out_path`` as WAV."""
     from ..parallel.batch_decode import BatchDecoder
 
-    with BatchDecoder(path, device=device) as dec, \
+    with BatchDecoder(path, device=device,
+                      device_parse=device_parse) as dec, \
             open(out_path, "wb") as fout:
         si = dec.streaminfo
         write_wave(fout, si.sample_rate, si.channels, si.bits_per_sample,
@@ -60,6 +66,8 @@ def main(argv=None) -> int:
                    help="output file (single input) or directory")
     p.add_argument("--device", default="cuda",
                    help="torch device of the decoder (default cuda)")
+    p.add_argument("--device-parse", action="store_true",
+                   help="parse the frame bodies on the device")
     args = p.parse_args(argv)
 
     # surface per-file errors as clean diagnostics, not tracebacks (the
@@ -74,7 +82,7 @@ def main(argv=None) -> int:
             out = os.path.join(args.output or os.path.dirname(path) or ".",
                                base)
         try:
-            print(convert_one(path, out, args.device))
+            print(convert_one(path, out, args.device, args.device_parse))
         except (OSError, FlacError) as e:
             print(f"{path}: {e}", file=sys.stderr)
             failed += 1

@@ -17,11 +17,9 @@ TPU link; the port copies every leaf of the plan into pinned host memory).
 
 from __future__ import annotations
 
-import time
-
 import torch
 
-from .. import kernels
+from ..graphs import CapturedGraph
 from ..models.lpc import precision_for_block_size
 from . import decorrelate, fixed, lpc, rice
 from .common import (BIG, TYPE_CONSTANT, TYPE_FIXED, TYPE_LPC,
@@ -319,40 +317,17 @@ def encode_frames_plan(pcm: torch.Tensor, *, bits_per_sample: int,
     return plan
 
 
-class PlanGraph:
+class PlanGraph(CapturedGraph):
     """:func:`encode_frames_plan` on ``stream`` for (shape, dtype) PCM,
-    captured once as a ``torch.cuda.CUDAGraph`` with static input and
-    output tensors: the counterpart of the JAX package's jitted
-    executable.
-
-    One eager call on ``stream`` goes first (it builds the kernel library
-    and warms every library handle and cached constant on that stream),
-    then the capture, which runs nothing: the launches it would make are
-    tallied (``kernels.launches_apart``) and counted at each replay.  A
-    failed capture or replay raises; nothing falls back to eager.
-    """
+    captured once (``graphs.CapturedGraph``) with a static PCM ``input``
+    and the static output plan: the counterpart of the JAX package's
+    jitted executable."""
 
     def __init__(self, shape, dtype, stream, **kw):
-        dev = stream.device
-        self.stream = stream
-        self.replays = 0
-        t0 = time.perf_counter()
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            self.input = torch.zeros(shape, dtype=dtype, device=dev)
-            encode_frames_plan(self.input, **kw)
-            self.graph = torch.cuda.CUDAGraph()
-            with kernels.launches_apart() as self.tally:
-                with torch.cuda.graph(self.graph, stream=stream):
-                    self.output = encode_frames_plan(self.input, **kw)
-            torch.cuda.synchronize(dev)
-            # what the card keeps for the graph: its private memory pool
-            # (the warm-up's blocks were returned by the capture's
-            # empty_cache), the static input and any constant it built
-            self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_seconds = time.perf_counter() - t0
+        super().__init__(
+            lambda pcm: encode_frames_plan(pcm, **kw),
+            lambda: torch.zeros(shape, dtype=dtype, device=stream.device),
+            stream)
 
     def replay(self, pcm: torch.Tensor) -> dict:
         """Copy ``pcm`` (on the card, or pinned on the host) into the
@@ -361,10 +336,7 @@ class PlanGraph:
         read it with work queued on the same stream."""
         with torch.cuda.stream(self.stream):
             self.input.copy_(pcm, non_blocking=True)
-            self.graph.replay()
-        kernels.add_launches(self.tally)
-        self.replays += 1
-        return self.output
+        return super().replay()
 
 
 # every captured graph of the process, by plan_graph's key (the JAX

@@ -22,6 +22,9 @@ body by its byte offset and bit length.
   field or Rice code per step.
 * :func:`parse_gate` reduces a batch's output to the three numbers the
   decoder dispatches on.
+* :func:`parse_batch` is the pair on one uploaded buffer, and
+  :class:`ParseGraph` (cached by :func:`parse_graph`) its CUDA graph,
+  the counterpart of the JAX decoder's jitted parse.
 
 A body is ``ok`` when it parsed to its last channel with none of these:
 a nonzero subframe pad bit; a reserved subframe type; effective bits
@@ -40,6 +43,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..graphs import CapturedGraph
+from .common import device_constant
 from .predict import FIXED_ROWS
 
 # slot space per channel of the plain version's output panel (as the JAX
@@ -70,6 +75,10 @@ WINDOW = 49
 # the plain version's Rice burst: window bits, and codes at most per step
 BURST_BITS = 1024
 BURST_CODES = 256
+
+# (5, 32) fixed-predictor taps by order, zero-padded
+_FIXED_ROWS_32 = tuple(tuple(int(x) for x in row) + (0,) * 28
+                       for row in FIXED_ROWS)
 
 
 def parse_frame_bodies(data: torch.Tensor, body_off: torch.Tensor,
@@ -330,7 +339,7 @@ def parse_frame_bodies_plain(data: torch.Tensor, body_off: torch.Tensor,
     order = torch.where(t6 >= 32, (t6 & 31) + 1,
                         torch.where(t6 >= 8, t6 - 8, 0))
     is_fixed = (t6 >= 8) & (t6 <= 12)
-    fixed = _fixed_rows(i64, dev)
+    fixed = device_constant(_FIXED_ROWS_32, i64, dev)
     qco = torch.where(is_fixed[:, :, None], fixed[order.clamp(0, 4)],
                       panel[:, :, N + OFF_QCOEFF:N + OFF_QCOEFF + 32])
     buf = torch.where((t6 == 0)[:, :, None],
@@ -450,7 +459,7 @@ def parse_gate(parsed: dict, valid: torch.Tensor) -> torch.Tensor:
     not ported.
     """
     order, shift, q = parsed["order"], parsed["shift"], parsed["qcoeffs"]
-    fixed = _fixed_rows(q.dtype, q.device)
+    fixed = device_constant(_FIXED_ROWS_32, q.dtype, q.device)
     rows_fixed = (shift == 0) & (order <= 4) \
         & (q == fixed[order.clamp(0, 4)]).all(-1)
     v = valid[:, None]
@@ -459,8 +468,68 @@ def parse_gate(parsed: dict, valid: torch.Tensor) -> torch.Tensor:
                         (rows_fixed | ~v).all().to(torch.int64)])
 
 
-def _fixed_rows(dtype, dev) -> torch.Tensor:
-    """(5, 32) fixed-predictor taps by order, zero-padded."""
-    rows = torch.zeros((5, 32), dtype=dtype, device=dev)
-    rows[:, :4] = torch.as_tensor(FIXED_ROWS, dtype=dtype)
-    return rows
+def byte_capacity(span: int) -> int:
+    """The byte buffer a batch's parse graph reads: the next power of two
+    at or above ``max(span, 1 MiB)``, so a stream meets few capacities."""
+    return max(1 << 20, 1 << (span - 1).bit_length())
+
+
+def upload_views(blob: torch.Tensor, frames: int) -> tuple:
+    """The parser's inputs inside one uploaded uint8 ``blob`` of
+    ``frames`` lanes: body offsets (int64), bit lengths and assignments
+    (int32), then the bytes.  Returns (data, body_off, nbits,
+    assignment), views of ``blob``."""
+    head = 16 * frames
+    return (blob[head:], blob[:8 * frames].view(torch.int64),
+            blob[8 * frames:12 * frames].view(torch.int32),
+            blob[12 * frames:head].view(torch.int32))
+
+
+def parse_batch(blob: torch.Tensor, frames: int, block_size: int,
+                channels: int, bits_per_sample: int) -> tuple:
+    """The jitted pair of the JAX decoder, ``parse_frame_bodies`` and
+    ``parse_gate``, on an uploaded ``blob`` (:func:`upload_views`).
+    Lanes with ``nbits`` 0 are padding: they parse to zeros and the gate
+    leaves them out (``valid = nbits > 0``, as in the JAX decoder).
+    Returns (parsed, gate); ``parsed`` also holds the ``assignment``
+    lanes, the reconstruction's last input."""
+    data, off, nbits, assign = upload_views(blob, frames)
+    parsed = parse_frame_bodies(data, off, nbits, assign, block_size,
+                                channels, bits_per_sample)
+    parsed["assignment"] = assign
+    return parsed, parse_gate(parsed, nbits > 0)
+
+
+class ParseGraph(CapturedGraph):
+    """:func:`parse_batch` on ``stream`` for ``frames`` lanes over a
+    ``capacity``-byte buffer, captured once (``graphs.CapturedGraph``),
+    with one static uint8 ``input`` blob: the counterpart of the JAX
+    decoder's jitted ``parse_frame_bodies`` and ``parse_gate``."""
+
+    def __init__(self, stream, frames: int, capacity: int, block_size: int,
+                 channels: int, bits_per_sample: int):
+        super().__init__(
+            lambda blob: parse_batch(blob, frames, block_size, channels,
+                                     bits_per_sample),
+            lambda: torch.zeros(16 * frames + capacity, dtype=torch.uint8,
+                                device=stream.device),
+            stream)
+
+
+# every parse graph of the process, by parse_graph's key
+PARSE_GRAPHS: dict = {}
+
+
+def parse_graph(stream, frames: int, capacity: int, block_size: int,
+                channels: int, bits_per_sample: int) -> ParseGraph:
+    """The :class:`ParseGraph` for these arguments, captured on first
+    use.  The key is JAX's jit key (the lane and word buckets and the
+    static arguments; ``bits_per_sample`` is also a launch argument of
+    the kernel) plus the device and stream."""
+    key = (stream.device, stream.cuda_stream, frames, capacity, block_size,
+           channels, bits_per_sample)
+    graph = PARSE_GRAPHS.get(key)
+    if graph is None:
+        graph = PARSE_GRAPHS[key] = ParseGraph(
+            stream, frames, capacity, block_size, channels, bits_per_sample)
+    return graph

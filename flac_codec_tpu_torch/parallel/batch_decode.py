@@ -33,6 +33,27 @@ on a stream of its own, and the shards are gathered in order onto the
 mesh's first device.  The device parse does not run under a mesh: asking
 for both raises, where the JAX package turns the device parse off.
 
+The JAX package jits the device parse (``parse_frame_bodies`` and
+``parse_gate``) and ``_device_reconstruct``.  The counterparts here are
+CUDA graphs (``graphs.CapturedGraph``), each captured once per device,
+stream and configuration and replayed once per batch:
+``ops.framescan.ParseGraph`` and :class:`ReconstructGraph`.  A batch is
+padded to a frame bucket (:func:`frame_bucket`, the JAX decoder's rule)
+with all-zero rows: lanes of zero bits, which parse to zeros and which
+the gate leaves out, and subframes of order, shift and assignment 0,
+which reconstruct to zeros and change no real row.  The JAX package pads
+only its device parse and compiles the host-parse reconstruction anew for
+each batch length; the port pads both, because a graph per distinct
+short batch would keep a graph's memory for one batch.  The parse reads
+a byte buffer of a few capacities (``ops.framescan.byte_capacity``),
+zero past the batch's bytes.  Each batch goes up in one copy out of a
+pinned staging buffer into the graph's static input, and its real rows
+are copied out of the static output on the graph's stream, which the
+caller's current stream then waits for; so the returned tensor is the
+caller's, as JAX returns a fresh array.  The gate's download is the one
+synchronisation of a device-parse batch.  The CPU, and
+``graphs=False``, run the same padded batches eagerly.
+
 Not ported: the ``FLAC_TPU_PALLAS`` / ``FLAC_TPU_NO_PALLAS`` /
 ``FLAC_TPU_DEVICE_PARSE`` switches.
 """
@@ -45,11 +66,48 @@ import torch
 from .. import metadata as meta
 from .. import native
 from ..decode import Decoder
-from ..ops.framescan import parse_frame_bodies, parse_gate
+from ..graphs import CapturedGraph
+from ..ops.framescan import (byte_capacity, parse_batch, parse_graph,
+                             upload_views)
 from ..ops.predict import fixed_compatible_mask, predict_fixed_batch
 from ..ops.predict_pallas import predict_lpc, tap_bucket
 from ..utils import trace
 from .mesh import batch_mesh, on_stream, shard_streams
+
+# the inputs of _device_reconstruct, in its order; a reconstruct blob
+# holds them as int32, one after another
+RECON_KEYS = ("buf", "qcoeffs", "shift", "order", "wasted", "assignment")
+
+
+def frame_bucket(n: int, batch_frames: int) -> int:
+    """The padded length of an n-frame batch: ``batch_frames`` halved
+    while the half still holds the batch and the bucket is above 64 (the
+    JAX decoder's rule, with ``batch_frames`` in the place of ``LANES``),
+    so a stream meets a few batch shapes."""
+    bucket = batch_frames
+    while bucket // 2 >= n and bucket > 64:
+        bucket //= 2
+    return bucket
+
+
+def _recon_shapes(B: int, C: int, N: int) -> tuple:
+    return ((B, C, N), (B, C, 32), (B, C), (B, C), (B, C), (B,))
+
+
+def recon_len(B: int, C: int, N: int) -> int:
+    """int32 elements of a (B, C, N) reconstruct blob."""
+    return B * C * (N + 35) + B
+
+
+def recon_views(blob: torch.Tensor, B: int, C: int, N: int) -> tuple:
+    """The six inputs of :func:`_device_reconstruct` (``RECON_KEYS``)
+    inside a flat int32 ``blob`` of ``recon_len(B, C, N)``, as views."""
+    out, lo = [], 0
+    for shape in _recon_shapes(B, C, N):
+        size = int(np.prod(shape))
+        out.append(blob[lo:lo + size].view(shape))
+        lo += size
+    return tuple(out)
 
 
 def _device_reconstruct(buf, qcoeffs, shift, order, wasted, assignment,
@@ -93,6 +151,45 @@ def _decorrelate(out: torch.Tensor, assignment: torch.Tensor,
     return out.to(torch.int32)
 
 
+def _shard_sizes(rows: int, shards: int) -> list:
+    """Rows of each shard when ``rows`` are cut into ``shards``
+    contiguous chunks (``torch.tensor_split``'s sizes)."""
+    q, r = divmod(rows, shards)
+    return [q + (i < r) for i in range(shards)]
+
+
+class ReconstructGraph(CapturedGraph):
+    """:func:`_device_reconstruct` of a (B, C, N) batch on ``stream``,
+    captured once (``graphs.CapturedGraph``) with one static int32
+    ``input`` blob (:func:`recon_views`): the counterpart of the JAX
+    decoder's jitted ``_device_reconstruct``."""
+
+    def __init__(self, stream, shape, mode: str, taps: int):
+        super().__init__(
+            lambda blob: _device_reconstruct(*recon_views(blob, *shape),
+                                             mode=mode, taps=taps),
+            lambda: torch.zeros(recon_len(*shape), dtype=torch.int32,
+                                device=stream.device),
+            stream)
+
+
+# every reconstruct graph of the process, by reconstruct_graph's key
+RECONSTRUCT_GRAPHS: dict = {}
+
+
+def reconstruct_graph(stream, shape, mode: str, taps: int) -> ReconstructGraph:
+    """The :class:`ReconstructGraph` for a (B, C, N) ``shape``, ``mode``
+    and ``taps``, captured on first use.  The key is JAX's jit key (the
+    shape and the static arguments; ``limbs`` and ``mesh`` are not
+    ported) plus the device and stream."""
+    key = (stream.device, stream.cuda_stream, tuple(shape), mode, taps)
+    graph = RECONSTRUCT_GRAPHS.get(key)
+    if graph is None:
+        graph = RECONSTRUCT_GRAPHS[key] = ReconstructGraph(stream, shape,
+                                                           mode, taps)
+    return graph
+
+
 class BatchDecoder:
     """Decode a FLAC stream in frame batches on ``device``.
 
@@ -102,18 +199,21 @@ class BatchDecoder:
     ``device``.  ``device_parse`` parses the frame bodies on the device;
     ``mesh`` (``parallel.mesh.batch_mesh``) shards the reconstruction over
     its devices and leaves the PCM on the first, and ``device`` is then
-    not consulted (module docstring).
+    not consulted (module docstring).  On CUDA each batch's parse and
+    reconstruction are replays of the configuration's CUDA graphs;
+    ``graphs=False`` runs them eagerly, op by op, the counterpart of
+    running the JAX decoder under ``jax.disable_jit()`` (the CPU always
+    runs eagerly).  A failed capture or replay raises.
     """
 
     def __init__(self, fp_or_path, batch_frames: int = 256, device="cuda",
-                 device_parse: bool = False, mesh=None):
+                 device_parse: bool = False, mesh=None, graphs: bool = True):
         self.mesh = None if mesh is None else batch_mesh(mesh)
         if self.mesh is not None:
             if device_parse:
                 raise ValueError("BatchDecoder: device_parse=True does not "
                                  "run under a mesh")
-            self.device = self.mesh[0]
-            self._streams = shard_streams(self.mesh)
+            self.device, devices = self.mesh[0], self.mesh
         else:
             self.device = torch.device(device)
             if self.device.type == "cuda":
@@ -122,6 +222,12 @@ class BatchDecoder:
                         "BatchDecoder(device='cuda'): CUDA is not available")
             elif self.device.type != "cpu":
                 raise ValueError(f"unsupported device {self.device}")
+            devices = batch_mesh([self.device])
+        # a device and a process-wide stream per shard (one without a
+        # mesh), so later decoders replay the same graphs
+        self._shards = list(zip(devices, shard_streams(devices)))
+        self._cuda = any(d.type == "cuda" for d in devices)
+        self.graphs = graphs
         self._nat = native.load()
         self._owns_fp = isinstance(fp_or_path, (str, bytes))
         if self._owns_fp:
@@ -139,12 +245,12 @@ class BatchDecoder:
                               and si.maximum_block_size > 0)
         self._device_parse = (device_parse and self._fixed_blocks
                               and si.bits_per_sample <= 24)
-        # the pinned upload buffer of the device parse, and the event of
-        # its last copy
+        # the pinned upload buffer on CUDA, and the events of its last
+        # copies
         self._staging = None
-        self._staged = None
-        # frames reconstructed on the device, frames the host decoded, and
-        # batches the device parse handed to the host parse
+        self._staged = []
+        # real frames reconstructed on the device, frames the host
+        # decoded, and batches the device parse handed to the host parse
         self.device_frames = 0
         self.host_frames = 0
         self.parse_fallbacks = 0
@@ -220,38 +326,46 @@ class BatchDecoder:
         self.host_frames += B
         return torch.from_numpy(pcm).to(self.device), sizes
 
-    def _upload(self, view: np.ndarray, scan: dict):
-        """One host-to-device copy of the batch: body offsets (int64), bit
-        lengths and assignments (int32), then the bytes from the first
-        body to the end of the last, staged in pinned memory on CUDA.
-        Returns the four tensors on the device."""
+    def _stage(self, nbytes: int) -> torch.Tensor:
+        """A host uint8 buffer of ``nbytes`` for one batch's upload: on
+        CUDA the decoder's pinned buffer, reused once its last copies have
+        left it; on the CPU a new one."""
+        if not self._cuda:
+            return torch.empty(nbytes, dtype=torch.uint8)
+        for event in self._staged:
+            event.synchronize()
+        self._staged = []
+        if self._staging is None or len(self._staging) < nbytes:
+            self._staging = torch.empty(max(nbytes, 1 << 20),
+                                        dtype=torch.uint8, pin_memory=True)
+        return self._staging[:nbytes]
+
+    def _copied(self, stream) -> None:
+        """Note that a copy out of the staging buffer is queued on
+        ``stream``."""
+        if stream is not None:
+            event = torch.cuda.Event()
+            event.record(stream)
+            self._staged.append(event)
+
+    def _upload(self, view: np.ndarray, scan: dict, bucket: int):
+        """Stage the batch for the parse (``ops.framescan.upload_views``
+        of ``bucket`` lanes): body offsets, bit lengths, assignments,
+        then the bytes from the first body to the end of the last, zero
+        up to the byte capacity.  Padding lanes are all zero.  Returns
+        the staged blob and the capacity."""
         B = scan["n"]
         off = scan["body_off"].astype(np.int64)
         lo, hi = int(off[0]), int(off[-1]) + int(scan["body_bytes"][-1])
-        head = 16 * B                         # 8 + 4 + 4 bytes a frame
-        nbytes = head + hi - lo
-        if self.device.type == "cuda":
-            if self._staged is not None:
-                self._staged.synchronize()    # the last copy has left it
-            if self._staging is None or len(self._staging) < nbytes:
-                self._staging = torch.empty(max(nbytes, 1 << 20),
-                                            dtype=torch.uint8,
-                                            pin_memory=True)
-            host = self._staging[:nbytes]
-        else:
-            host = torch.empty(nbytes, dtype=torch.uint8)
-        h = host.numpy()
-        h[:8 * B].view(np.int64)[:] = off - lo
-        h[8 * B:12 * B].view(np.int32)[:] = scan["body_bytes"] * 8
-        h[12 * B:head].view(np.int32)[:] = scan["assignment"]
-        h[head:] = view[lo:hi]
-        dev = host.to(self.device, non_blocking=True)
-        if self.device.type == "cuda":
-            self._staged = torch.cuda.Event()
-            self._staged.record()
-        return (dev[head:], dev[:8 * B].view(torch.int64),
-                dev[8 * B:12 * B].view(torch.int32),
-                dev[12 * B:head].view(torch.int32))
+        cap = byte_capacity(hi - lo)
+        blob = self._stage(16 * bucket + cap)
+        data, offs, nbits, assign = (t.numpy()
+                                     for t in upload_views(blob, bucket))
+        for dst, src in ((offs, off - lo), (nbits, scan["body_bytes"] * 8),
+                         (assign, scan["assignment"]), (data, view[lo:hi])):
+            dst[:len(src)] = src
+            dst[len(src):] = 0
+        return blob, cap
 
     def _read_batch_device_parse(self):
         """The device-parse step: the native scan finds the batch's frame
@@ -271,17 +385,28 @@ class BatchDecoder:
                 view, dec.r.pos, self.batch_frames, si.sample_rate,
                 si.channels, si.bits_per_sample, self.block_size, remaining)
         B = scan["n"]
-        if B == 0:
+        # an empty body would look like a padding lane to the gate: the
+        # host parse raises its error
+        if B == 0 or not scan["body_bytes"].all():
             return "fallback"
+        bucket = frame_bucket(B, self.batch_frames)
+        C, N = si.channels, self.block_size
+        (d, s), = self._shards
         with trace.stage("decode.upload", frames=B):
-            data, off, nbits, assign = self._upload(view, scan)
-        with trace.stage("decode.parse_device", frames=B):
-            parsed = parse_frame_bodies(data, off, nbits, assign,
-                                        self.block_size, si.channels,
-                                        si.bits_per_sample)
-            all_ok, order_max, fixed = parse_gate(
-                parsed, torch.ones(B, dtype=torch.bool,
-                                   device=self.device)).tolist()
+            blob, cap = self._upload(view, scan, bucket)
+        with trace.stage("decode.parse_device", frames=B), on_stream(s):
+            if self.graphs and d.type == "cuda":
+                graph = parse_graph(s, bucket, cap, N, C,
+                                    si.bits_per_sample)
+                graph.input.copy_(blob, non_blocking=True)
+                self._copied(s)
+                parsed, gate = graph.replay()
+            else:
+                blob = blob.to(d, non_blocking=True)
+                self._copied(s)
+                parsed, gate = parse_batch(blob, bucket, N, C,
+                                           si.bits_per_sample)
+            all_ok, order_max, fixed = gate.tolist()
         if not all_ok:
             return "fallback"
         dec.r.pos = scan["end_bitpos"]
@@ -289,10 +414,9 @@ class BatchDecoder:
         mode = "fixed" if fixed else "lpc"
         taps = 32 if fixed else tap_bucket(order_max)
         with trace.stage("decode.reconstruct", frames=B, mode=mode):
-            pcm = _device_reconstruct(
-                parsed["buf"], parsed["qcoeffs"], parsed["shift"],
-                parsed["order"], parsed["wasted"], assign, mode=mode,
-                taps=taps)
+            pcm = self._reconstruct(
+                [tuple(parsed[k] for k in RECON_KEYS)], bucket, B, mode,
+                taps)
         self.device_frames += B
         return pcm, scan["blocks"]
 
@@ -300,7 +424,8 @@ class BatchDecoder:
         """Decode up to batch_frames frames; returns a (B, channels,
         block_size) int32 tensor on the device and the per-frame sample
         counts, or None at end of stream.  A short tail, and a frame the
-        native parser stops at, go to the host decoder."""
+        native parser stops at, go to the host decoder.  The tensor is
+        the caller's: later batches do not write to it."""
         if not self._fixed_blocks:
             return self._read_batch_bulk_host()
         if self._device_parse:
@@ -327,45 +452,81 @@ class BatchDecoder:
 
         # all-FIXED batches take the cumsum inverse; otherwise the kernel
         # runs with the smallest tap bucket covering the largest order
-        C = si.channels
+        C, N = si.channels, self.block_size
         fixed = fixed_compatible_mask(raw["qcoeffs"].reshape(n * C, 32),
                                       raw["shift"].reshape(n * C),
                                       raw["order"].reshape(n * C)).all()
         mode = "fixed" if fixed else "lpc"
         taps = 32 if fixed else tap_bucket(int(raw["order"].max()))
-        args = [torch.from_numpy(raw[k]) for k in (
-            "buf", "qcoeffs", "shift", "order", "wasted", "assignment")]
+        bucket = frame_bucket(n, self.batch_frames)
         with trace.stage("decode.reconstruct", frames=n, mode=mode):
-            if self.mesh is None:
-                pcm = _device_reconstruct(
-                    *(a.to(self.device) for a in args), mode=mode, taps=taps)
-            else:
-                pcm = self._reconstruct_sharded(args, mode, taps)
+            # one staged reconstruct blob per shard of the padded batch,
+            # padding rows zero
+            sizes = _shard_sizes(bucket, len(self._shards))
+            host = self._stage(4 * sum(recon_len(b, C, N) for b in sizes))
+            host = host.view(torch.int32)
+            blobs, lo, first = [], 0, 0
+            for b in sizes:
+                blob = host[lo:lo + recon_len(b, C, N)]
+                m = min(max(n - first, 0), b)
+                for dst, k in zip(recon_views(blob, b, C, N), RECON_KEYS):
+                    dst = dst.numpy()
+                    dst[:m] = raw[k][first:first + m]
+                    dst[m:] = 0
+                blobs.append(blob)
+                lo += len(blob)
+                first += b
+            pcm = self._reconstruct(blobs, bucket, n, mode, taps)
         self.device_frames += n
         return pcm, raw["blocks"]
 
-    def _reconstruct_sharded(self, args, mode: str, taps: int):
-        """Reconstruct one contiguous shard of the batch on each mesh
-        device and stream, and gather the shards in order on the first
-        device, whose current stream waits for every shard."""
-        home = self.mesh[0]
+    def _reconstruct(self, inputs: list, bucket: int, n: int, mode: str,
+                     taps: int) -> torch.Tensor:
+        """The PCM of a batch's ``n`` real frames, padded to ``bucket``
+        and cut into one shard a mesh entry (``inputs``: each shard's
+        reconstruct blob staged on the host, or, without a mesh, the six
+        tensors of a device parse).  Each shard holding a real frame is
+        reconstructed on its device and stream (a graph replay on CUDA)
+        and its real rows copied out, so the next replay cannot overwrite
+        them; the shards are gathered in order on the first device, whose
+        current stream waits for every shard."""
+        home = self._shards[0][0]
         consumer = (torch.cuda.current_stream(home) if home.type == "cuda"
                     else None)
-        parts = []
-        shards = zip(*(torch.tensor_split(a, len(self.mesh)) for a in args))
-        for d, s, shard in zip(self.mesh, self._streams, shards):
-            if shard[0].shape[0] == 0:
+        C, N = self.streaminfo.channels, self.block_size
+        parts, first = [], 0
+        for (d, s), x, b in zip(self._shards, inputs,
+                                _shard_sizes(bucket, len(self._shards))):
+            m, first = min(n - first, b), first + b
+            if m <= 0:
                 continue
+            shape = (b, C, N)
             with on_stream(s):
-                part = _device_reconstruct(
-                    *(a.to(d) for a in shard), mode=mode, taps=taps)
-                part = part.to(home)
+                if self.graphs and d.type == "cuda":
+                    graph = reconstruct_graph(s, shape, mode, taps)
+                    if isinstance(x, tuple):
+                        for dst, src in zip(recon_views(graph.input, *shape),
+                                            x):
+                            dst.copy_(src)
+                    else:
+                        graph.input.copy_(x, non_blocking=True)
+                        self._copied(s)
+                    part = graph.replay()[:m]
+                    # the static output: copy it out (.to(home) alone
+                    # would hand it out when d is home)
+                    part = part.clone() if d == home else part.to(home)
+                else:
+                    if not isinstance(x, tuple):
+                        x = recon_views(x.to(d, non_blocking=True), *shape)
+                        self._copied(s)
+                    part = _device_reconstruct(*x, mode=mode,
+                                               taps=taps)[:m].to(home)
             if consumer is not None:
                 if s is not None:
                     consumer.wait_stream(s)
                 part.record_stream(consumer)
             parts.append(part)
-        return torch.cat(parts)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def read_batch_interleaved(self):
         """One decoded batch as a (samples, channels) int32 tensor on the

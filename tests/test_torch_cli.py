@@ -208,6 +208,48 @@ def test_tool_missing_input_matches_jax(tool, tmp_path, monkeypatch):
     assert "No such file" in err and "Traceback" not in err
 
 
+def test_flac2wav_device_parse_matches_jax_device_parse(tmp_path,
+                                                       monkeypatch):
+    """``flac2wav --device cpu --device-parse`` writes the bytes of the
+    JAX ``flac2wav --tpu`` under ``FLAC_TPU_DEVICE_PARSE=1``, and both
+    parse the frame bodies on the device: 7 frames of block 64 and a
+    tail (the JAX parser runs in interpret mode here)."""
+    from flac_codec_tpu.ops import framescan as jfs
+    from flac_codec_tpu_torch.ops import framescan as tfs
+
+    n = 64 * 7 + 40
+    rng = np.random.default_rng(51)
+    inter = (3000 * np.sin(np.arange(2 * n) * 0.013)
+             + rng.integers(-100, 100, 2 * n)).astype(np.int32)
+    parses = {"jax": 0, "port": 0}
+    results = []
+    for name, main, module, extra in (
+            ("jax", jcli.main, jfs, ["--tpu"]),
+            ("port", tcli.main, tfs, ["--device", "cpu", "--device-parse"])):
+        root = tmp_path / name
+        root.mkdir()
+        w = jencode.FlacSampleWriter(str(root / "s.flac"),
+                                     jencode.Options(block_size=64), RATE,
+                                     16, 2, total_samples=n)
+        w.write(inter)
+        w.finalize()
+        parse = module.parse_frame_bodies
+
+        def counted(*args, _parse=parse, _name=name, **kw):
+            parses[_name] += 1
+            return _parse(*args, **kw)
+
+        monkeypatch.setattr(module, "parse_frame_bodies", counted)
+        monkeypatch.setenv("FLAC_TPU_DEVICE_PARSE", "1")
+        results.append(_run(main, ["flac2wav", "s.flac", "-o", "s.wav",
+                                   *extra], str(root), monkeypatch))
+    (jrc, jout, jerr, jfiles), (trc, tout, terr, tfiles) = results
+    assert trc == jrc == 0, terr
+    assert (tout, terr) == (jout, jerr)
+    assert tfiles["s.wav"] == jfiles["s.wav"]
+    assert parses["jax"] >= 1 and parses["port"] >= 1
+
+
 def test_cli_table_and_unknown_tool(capsys):
     assert tcli.TOOLS == jcli.TOOLS
     assert tcli.main(["no-such-tool"]) == 2

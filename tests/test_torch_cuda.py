@@ -32,6 +32,7 @@ from flac_codec_tpu_torch.ops.common import u32_to_i32
 from flac_codec_tpu_torch.ops.predict import predict_batch_plain
 from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS, int64_rows,
                                                      predict_lpc)
+from flac_codec_tpu_torch.parallel import batch_decode as tbd
 from flac_codec_tpu_torch.parallel.batch import BatchEncoder
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 from flac_codec_tpu_torch.parallel.mesh import batch_mesh, shard_streams
@@ -846,12 +847,15 @@ def test_batch_decoder_device_parse_on_card_is_lossless(dev, bps, channels,
     data = _encode(inter, Options.best().with_block_size(block), 48000, bps,
                    channels, n)
     kernels.reset_launches()
+    captured = set(tfs.PARSE_GRAPHS)
     with BatchDecoder(io.BytesIO(data), batch_frames=4, device=dev,
                       device_parse=True) as dec:
         pcm = dec.read_all_device()
         assert (dec.device_frames, dec.host_frames) == (9, 1)
         assert dec.parse_fallbacks == 1          # the short tail
-    assert kernels.LAUNCHES["parse_frame_bodies"] == 3
+    # three replays, and the warm-up of a graph captured here
+    assert kernels.LAUNCHES["parse_frame_bodies"] == 3 + len(
+        set(tfs.PARSE_GRAPHS) - captured)
     assert kernels.LAUNCHES["predict_lpc"] > 0
     assert pcm.device.type == "cuda"
     assert np.array_equal(pcm.cpu().numpy().reshape(-1), inter)
@@ -880,3 +884,110 @@ def test_eight_channel_24_bit_block_16384_encodes_on_card(dev):
                           device_parse=device_parse) as dec:
             pcm = dec.read_all_device()
         assert np.array_equal(pcm.cpu().numpy().reshape(-1), inter)
+
+
+def _decode_replays() -> dict:
+    """Each decode graph's replays so far, by ("parse" or "reconstruct",
+    *its key)."""
+    out = {("parse",) + k: g.replays for k, g in tfs.PARSE_GRAPHS.items()}
+    out.update({("reconstruct",) + k: g.replays
+                for k, g in tbd.RECONSTRUCT_GRAPHS.items()})
+    return out
+
+
+def _decode_replayed(before: dict) -> dict:
+    """Replays since ``before``, summed by kind."""
+    out = {"parse": 0, "reconstruct": 0}
+    for k, n in _decode_replays().items():
+        out[k[0]] += n - before.get(k, 0)
+    return out
+
+
+def _decode(data, dev, **kw):
+    with BatchDecoder(io.BytesIO(data), batch_frames=4, device=dev,
+                      **kw) as dec:
+        pcm = dec.read_all_device()
+        frames = (dec.device_frames, dec.host_frames)
+    return pcm, frames
+
+
+@pytest.mark.parametrize("device_parse", [False, True])
+@pytest.mark.parametrize("bps,rate", [(16, 44100), (24, 96000)])
+def test_decode_graphs_and_eager_give_the_same_pcm(dev, bps, rate,
+                                                   device_parse):
+    """Batches of 4, 4 and 1 frames (the last padded to 4) and a host
+    tail: graph replays, ``graphs=False`` and the input agree, and each
+    device batch was one reconstruct replay (and one parse replay when
+    the device parsed it)."""
+    inter, n = _stereo_clip(bps)
+    data = _encode_on(FlacSampleWriter, inter, n, bps, rate)
+    before = _decode_replays()
+    got, frames = _decode(data, dev, device_parse=device_parse)
+    replayed = _decode_replayed(before)
+    before = _decode_replays()
+    eager, eager_frames = _decode(data, dev, device_parse=device_parse,
+                                  graphs=False)
+    assert _decode_replayed(before) == {"parse": 0, "reconstruct": 0}
+    assert frames == eager_frames == (9, 1)
+    assert replayed == {"parse": 3 if device_parse else 0,
+                        "reconstruct": 3}
+    assert got.device.type == "cuda" and torch.equal(got, eager)
+    assert np.array_equal(got.cpu().numpy().reshape(-1), inter)
+
+
+def test_decode_graphs_two_shards_on_one_card(dev):
+    """cuda:0 listed twice: a reconstruct graph per shard stream; the
+    1-frame batch's second shard holds only padding and is skipped."""
+    mesh = batch_mesh([dev, dev])
+    inter, n = _stereo_clip(16)
+    data = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    before = _decode_replays()
+    got, frames = _decode(data, None, mesh=mesh)
+    streams = {}
+    for k, r in _decode_replays().items():
+        if r != before.get(k, 0):
+            s = tbd.RECONSTRUCT_GRAPHS[k[1:]].stream
+            streams[s] = streams.get(s, 0) + r - before.get(k, 0)
+    eager, _ = _decode(data, None, mesh=mesh, graphs=False)
+    s0, s1 = shard_streams(mesh)
+    assert streams == {s0: 3, s1: 2}
+    assert frames == (9, 1)
+    assert got.device == mesh[0] and torch.equal(got, eager)
+    assert np.array_equal(got.cpu().numpy().reshape(-1), inter)
+
+
+@pytest.mark.parametrize("device_parse", [False, True])
+def test_read_batch_device_results_outlive_later_batches(dev, device_parse):
+    """Two consecutive batches of one graph stay distinct and right after
+    a third batch replays the same graph: the decoder hands out copies
+    of the static output, never the output itself."""
+    inter, n = _stereo_clip(16, frames=13)
+    data = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    with BatchDecoder(io.BytesIO(data), batch_frames=4, device=dev,
+                      device_parse=device_parse) as dec:
+        a, _ = dec.read_batch_device()
+        b, _ = dec.read_batch_device()
+        c, _ = dec.read_batch_device()
+        torch.cuda.synchronize()
+    frames = inter[:4096 * 12 * 2].reshape(12, 4096, 2).transpose(0, 2, 1)
+    assert len({a.data_ptr(), b.data_ptr(), c.data_ptr()}) == 3
+    for got, want in ((a, frames[:4]), (b, frames[4:8]), (c, frames[8:])):
+        assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("device_parse", [False, True])
+def test_consumer_on_a_side_stream_reads_the_pcm(dev, device_parse):
+    """The caller's current stream is a side stream: it waits for the
+    decoder's stream, so what it computes on each batch is right."""
+    inter, n = _stereo_clip(24)
+    data = _encode_on(FlacSampleWriter, inter, n, 24, 96000)
+    side = torch.cuda.Stream()
+    sums = []
+    with torch.cuda.stream(side):
+        with BatchDecoder(io.BytesIO(data), batch_frames=4, device=dev,
+                          device_parse=device_parse) as dec:
+            while (got := dec.read_batch_interleaved()) is not None:
+                sums.append(got.to(torch.int64).sum(0))
+        total = torch.stack(sums).sum(0).cpu()
+    want = inter.reshape(-1, 2).astype(np.int64).sum(0)
+    assert total.tolist() == want.tolist()
