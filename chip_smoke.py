@@ -95,11 +95,27 @@ non-zero without one, and outside a checkout).  Phases:
    with stage times, the device ms of a batch in each graph (CUDA events
    around back-to-back replays, and around one eager call), the
    profiler's kernel and copy time and host CUDA API calls a batch, and
-   each graph's ``memory_reserved``.
+   each graph's ``memory_reserved``;
+19. the port's device fuzzer (``tools/fuzz_roundtrip_torch.py``,
+   ``fuzz_device``) on the card, seed ``FUZZ_SEED``, ``FUZZ_TRIALS``
+   trials: random stream lengths and signal classes through the f64
+   ``BatchEncoder`` (bytes == ``FlacSampleWriter``) and ``BatchDecoder``
+   with both parse paths; no trial may fail, and every kernel of the
+   port must launch during it;
+20. memory across a mixed library (``mixed_library``): five formats
+   (``LIBRARY``: mono to 8 channels, 16 and 24 bits, blocks 4096 and
+   16384), each in f64 (bytes == ``FlacSampleWriter``) and f32 (MD5) at
+   256-frame batches and decoded through both parse paths, then the
+   first format again (bytes == its first encode); ``memory_reserved``
+   after each format, and its growth over the phase, which must stay
+   within the largest single capture's pool (the 8-channel
+   configuration captured alone on a fresh stream) plus 2 GiB.
 
 Every encoder and decoder here runs with CUDA graphs on (the default)
-but those of phases 17 and 18 that ask for ``graphs=False``; each
-graph's capture prints the growth of ``torch.cuda.memory_reserved()``,
+but those of phases 17 and 18 that ask for ``graphs=False``; every graph
+of a stream captures into that stream's one memory pool
+(``graphs.stream_pool``); each graph's capture prints the growth of
+``torch.cuda.memory_reserved()`` and its stream's pool total,
 phases 3-4, 12, 14 and 15 check that every encode batch was a replay,
 and phases 7, 8, 10, 11, 12, 13 and 15 that every decode batch was.
 Every time is printed beside the card's ``nvidia-smi`` name and power
@@ -1518,6 +1534,23 @@ def decode_graph_name(key) -> str:
             f"{mode} taps {taps}")
 
 
+def pool_totals(graph=None) -> str:
+    """Each stream's memory pool total (``graphs.POOL_BYTES``: the growth
+    of ``memory_reserved`` the stream's captures left since its first),
+    in MiB, or only ``graph``'s stream's; "not kept" for a checkout whose
+    graphs have private pools."""
+    from flac_codec_tpu_torch import graphs
+
+    totals = getattr(graphs, "POOL_BYTES", None)
+    if totals is None:
+        return "not kept"
+    if graph is not None:
+        key = (graph.stream.device, graph.stream.cuda_stream)
+        return f"{totals[key] / 2**20:.1f} MiB"
+    return ", ".join(f"{d} stream {s:#x} {b / 2**20:.1f} MiB"
+                     for (d, s), b in totals.items()) or "none"
+
+
 def report_captures(label: str, before) -> list:
     """Print each decode graph captured since ``before`` (a set of
     ``decode_graphs()`` keys) with the growth of ``memory_reserved`` its
@@ -1527,12 +1560,14 @@ def report_captures(label: str, before) -> list:
     for key, g in new:
         tally = {k: v for k, v in g.tally.items() if v}
         print(f"  captured {decode_graph_name(key)}: memory_reserved "
-              f"+{g.reserved_bytes / 2**20:.1f} MiB, warm-up and capture "
+              f"+{g.reserved_bytes / 2**20:.1f} MiB (its stream's pool "
+              f"{pool_totals(g)}), warm-up and capture "
               f"{g.capture_seconds:.3f} s, launches a replay {tally}")
     print(f"{label}: {len(new)} decode graphs captured, "
           f"{sum(g.capture_seconds for _, g in new):.2f} s of warm-up and "
           f"capture, memory_reserved +"
-          f"{sum(g.reserved_bytes for _, g in new) / 2**20:.1f} MiB")
+          f"{sum(g.reserved_bytes for _, g in new) / 2**20:.1f} MiB; pools "
+          f"{pool_totals()}")
     return new
 
 
@@ -1770,9 +1805,9 @@ def check_replays(label: str, before: dict, want: int) -> None:
         if key not in before:
             tally = {k: v for k, v in g.tally.items() if v}
             print(f"  captured {graph_name(key)}: memory_reserved "
-                  f"+{g.reserved_bytes / 2**20:.1f} MiB, warm-up and "
-                  f"capture {g.capture_seconds:.2f} s, launches a replay "
-                  f"{tally}")
+                  f"+{g.reserved_bytes / 2**20:.1f} MiB (its stream's pool "
+                  f"{pool_totals(g)}), warm-up and capture "
+                  f"{g.capture_seconds:.2f} s, launches a replay {tally}")
     got = sum(n - before.get(k, 0) for k, n in graph_replays().items())
     if got != want:
         raise AssertionError(f"{label}: {got} graph replays, want {want} "
@@ -1881,8 +1916,9 @@ def compare_graphs(dev, pcm16, trace_path: str) -> None:
                   f"profiler kernel and copy time {prof}, {api:.0f} host "
                   f"CUDA API calls; on {card()}")
         print(f"  its graph {graph_name(key)}: memory_reserved "
-              f"+{graph.reserved_bytes / 2**20:.1f} MiB, warm-up and "
-              f"capture {graph.capture_seconds:.2f} s")
+              f"+{graph.reserved_bytes / 2**20:.1f} MiB (its stream's pool "
+              f"{pool_totals(graph)}), warm-up and capture "
+              f"{graph.capture_seconds:.2f} s")
 
 
 # the decode stages of each parse path (device_parse False / True)
@@ -1964,8 +2000,194 @@ def compare_decode_graphs(dev, clips, trace_path: str) -> None:
                       f"batches); on {card()}")
             for key, g, n in used.values():
                 print(f"  its graph {decode_graph_name(key)}: "
-                      f"memory_reserved +{g.reserved_bytes / 2**20:.1f} MiB, "
-                      f"warm-up and capture {g.capture_seconds:.3f} s")
+                      f"memory_reserved +{g.reserved_bytes / 2**20:.1f} MiB "
+                      f"(its stream's pool {pool_totals(g)}), warm-up and "
+                      f"capture {g.capture_seconds:.3f} s")
+
+
+# phase 19: the device fuzzer's seed and trials
+FUZZ_SEED = 14
+FUZZ_TRIALS = 480
+
+
+def check_fuzz(root: str, dev) -> None:
+    """Phase 19: the port's device fuzzer (``tools/fuzz_roundtrip_torch.py``
+    of the checkout at ``root``) on the card, counted: no trial may fail,
+    and every kernel of the port must launch during it."""
+    import importlib.util
+
+    from flac_codec_tpu_torch import kernels
+    from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
+
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_roundtrip_torch",
+        os.path.join(root, "tools", "fuzz_roundtrip_torch.py"))
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    before = set(PLAN_GRAPHS) | set(decode_graphs())
+    kernels.reset_launches()
+    t = time.perf_counter()
+    fails = fuzz.fuzz_device(np.random.default_rng(FUZZ_SEED),
+                             time.time() + 3600, FUZZ_TRIALS, device=dev)
+    secs = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    captured = (set(PLAN_GRAPHS) | set(decode_graphs())) - before
+    print(f"device fuzz, seed {FUZZ_SEED}: {FUZZ_TRIALS} trials, {fails} "
+          f"failures, {secs:.2f} s, {len(captured)} graphs captured; "
+          f"launches {launches}; pools {pool_totals()}; on {card()}")
+    if fails:
+        raise AssertionError(f"device fuzz: {fails} of {FUZZ_TRIALS} trials "
+                             "failed")
+    check_launches("device fuzz", launches, tuple(launches))
+
+
+# phase 20's mixed library: bits, channels, sample rate, block size; each
+# format encoded in f64 and f32 from a clip of LIBRARY_FRAMES frames,
+# padded to one 256-frame batch
+LIBRARY = ((16, 1, 44100, 4096), (16, 2, 44100, 4096), (24, 2, 96000, 4096),
+           (24, 6, 48000, 4096), (24, 8, 96000, 16384))
+LIBRARY_FRAMES = 5
+# phase 20 fails if memory_reserved grows past the largest single
+# capture's pool by more than this
+LIBRARY_SLACK = 2 << 30
+
+
+def library_clip(bps: int, ch: int, block: int, seed: int) -> np.ndarray:
+    """LIBRARY_FRAMES frames of seeded ``ch``-channel PCM, interleaved
+    int32: a sine a channel at half scale over noise."""
+    rng = np.random.default_rng(seed)
+    n = LIBRARY_FRAMES * block
+    t = np.arange(n)
+    half = 1 << (bps - 2)
+    return np.stack([half * np.sin(t * (0.01 + 0.003 * c))
+                     + rng.integers(-999, 1000, n) for c in range(ch)]
+                    ).T.reshape(-1).astype(np.int32)
+
+
+def mixed_library(dev, check: bool = True) -> dict:
+    """Phase 20: the formats of ``LIBRARY`` encoded one after another in
+    one process, each in f64 (bytes == ``FlacSampleWriter``'s) and f32
+    (MD5 verified), each stream decoded through both parse paths (PCM ==
+    input), then the first format encoded again (bytes == its first
+    encode).  Prints ``memory_reserved`` after each format and the
+    growth over the phase, and the largest single capture's pool: the
+    growth of capturing the largest configuration (8 channels, block
+    16384, f64 and f32) alone on a fresh stream.  With ``check``, raises
+    if the growth passes that pool plus ``LIBRARY_SLACK``.  Returns the
+    numbers."""
+    import torch
+
+    from flac_codec_tpu_torch.decode import Verified, verify
+    from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+    from flac_codec_tpu_torch.ops.encode_batch import PlanGraph
+    from flac_codec_tpu_torch.parallel.batch import BatchEncoder
+
+    def encode(cls, inter, ch, rate, bps, block, **kw):
+        buf = io.BytesIO()
+        enc = cls(buf, Options.best().with_block_size(block), rate, bps, ch,
+                  total_samples=len(inter) // ch, **kw)
+        enc.write(inter)
+        enc.finalize()
+        return buf.getvalue(), enc
+
+    mib = 2 ** 20
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_reserved(dev)
+    print(f"mixed library: memory_reserved {start / mib:.1f} MiB at the "
+          f"start; on {card()}")
+    first, largest = None, {}
+    t0 = time.perf_counter()
+    for i, (bps, ch, rate, block) in enumerate(LIBRARY):
+        inter = library_clip(bps, ch, block, seed=20 + i)
+        label = f"{ch} ch {bps}-bit {rate} Hz block {block}"
+        host, _ = encode(FlacSampleWriter, inter, ch, rate, bps, block)
+        for analysis in ("f64", "f32"):
+            before = graph_replays()
+            data, enc = encode(BatchEncoder, inter, ch, rate, bps, block,
+                               batch_frames=BATCH_FRAMES, analysis=analysis,
+                               device=dev)
+            check_replays(f"{label} {analysis} encode", before,
+                          batch_replays(LIBRARY_FRAMES))
+            if analysis == "f64" and data != host:
+                raise AssertionError(f"{label}: f64 stream differs from "
+                                     "FlacSampleWriter's")
+            if analysis == "f32" and verify(io.BytesIO(data)) \
+                    != Verified.MD5_MATCH:
+                raise AssertionError(f"{label}: f32 stream failed MD5 "
+                                     "verification")
+            if first is None:
+                first = (inter, ch, rate, bps, block, data)
+            if ch == 8:
+                largest[analysis] = ((BATCH_FRAMES, ch, block),
+                                     torch.int32, enc._plan_kw)
+            for device_parse in (False, True):
+                pcm, _ = decode_port(data, dev, device_parse=device_parse)
+                if not np.array_equal(pcm.cpu().numpy().reshape(-1), inter):
+                    raise AssertionError(f"{label} {analysis}: decode "
+                                         f"(device_parse={device_parse}) "
+                                         "differs from the input")
+                del pcm
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        print(f"mixed library, after {label} (f64 bytes == "
+              "FlacSampleWriter's, f32 MD5 verified, both parse paths "
+              "lossless): memory_reserved "
+              f"{torch.cuda.memory_reserved(dev) / mib:.1f} MiB; pools "
+              f"{pool_totals()}")
+    inter, ch, rate, bps, block, data = first
+    again, _ = encode(BatchEncoder, inter, ch, rate, bps, block,
+                      batch_frames=BATCH_FRAMES, analysis="f64", device=dev)
+    if again != data:
+        raise AssertionError("mixed library: the first format's second "
+                             "encode differs from its first")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    growth = torch.cuda.memory_reserved(dev) - start
+    peak = torch.cuda.max_memory_reserved(dev) - start
+    secs = time.perf_counter() - t0
+    alone = {}
+    for analysis, (shape, dtype, kw) in largest.items():
+        g = PlanGraph(shape, dtype, fresh_stream(dev), **kw)
+        alone[analysis] = g.reserved_bytes
+        del g
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    pool = max(alone.values())
+    print(f"mixed library: {len(LIBRARY)} formats x (f64, f32), both parse "
+          f"paths, in {secs:.2f} s; the first format re-encoded "
+          f"byte-identical; memory_reserved growth {growth / mib:.1f} MiB "
+          f"(peak {peak / mib:.1f} MiB); the largest single capture's pool "
+          f"{pool / mib:.1f} MiB (8 ch block 16384, each alone on a "
+          "fresh stream: " + ", ".join(f"{a} {b / mib:.1f} MiB"
+                                       for a, b in alone.items())
+          + f"); limit {(pool + LIBRARY_SLACK) / mib:.1f} MiB; on {card()}")
+    if check and growth > pool + LIBRARY_SLACK:
+        raise AssertionError(f"mixed library: memory_reserved grew "
+                             f"{growth / mib:.1f} MiB, past the largest "
+                             f"pool {pool / mib:.1f} MiB + 2 GiB")
+    return {"growth_mib": growth / mib, "peak_mib": peak / mib,
+            "largest_pool_mib": pool / mib, "seconds": secs}
+
+
+def fresh_stream(dev):
+    """A stream of ``dev`` on which no graph of this process was
+    captured, cached or not (PyTorch hands streams out from a pool, so a
+    new ``torch.cuda.Stream`` may be one that is in use)."""
+    import torch
+
+    from flac_codec_tpu_torch import graphs
+    from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
+
+    used = {(g.stream.device, g.stream.cuda_stream)
+            for g in [*PLAN_GRAPHS.values(), *decode_graphs().values()]}
+    used |= set(getattr(graphs, "POOL_BYTES", {}))
+    for _ in range(128):
+        s = torch.cuda.Stream(device=dev)
+        if (s.device, s.cuda_stream) not in used:
+            return s
+    raise RuntimeError("no stream without graphs")
 
 
 def stage_ms(path: str, names) -> dict:
@@ -2187,6 +2409,12 @@ def main() -> int:
     compare_decode_graphs(dev, (("16-bit 120 s", data16, pcm16, 2),
                                 ("24-bit 20 s", data24, pcm24, 3)),
                           trace_path)
+
+    # ---- 19. the device fuzzer on the card, counted ----
+    check_fuzz(root, dev)
+
+    # ---- 20. memory across a mixed library ----
+    mixed_library(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

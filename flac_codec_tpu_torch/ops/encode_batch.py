@@ -332,16 +332,19 @@ class PlanGraph(CapturedGraph):
     def replay(self, pcm: torch.Tensor) -> dict:
         """Copy ``pcm`` (on the card, or pinned on the host) into the
         static input and run the graph, both on the graph's stream.
-        Returns the static output plan, which the next replay overwrites:
-        read it with work queued on the same stream."""
+        Returns the static output plan, which the next replay of any
+        graph on the stream may overwrite: read it with work queued on
+        the same stream before that."""
         with torch.cuda.stream(self.stream):
             self.input.copy_(pcm, non_blocking=True)
         return super().replay()
 
 
 # every captured graph of the process, by plan_graph's key (the JAX
-# package's jit cache keeps its executables the same way); clearing it
-# after torch.cuda.synchronize() releases the graphs' memory pools
+# package's jit cache keeps its executables the same way); the graphs of
+# a stream share one memory pool with its decode graphs
+# (graphs.stream_pool), released only when every graph of the stream,
+# in this cache and in the decoder's, has been dropped
 PLAN_GRAPHS: dict = {}
 
 

@@ -185,11 +185,19 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_sources_never_import_jax():
-    """No module of the port, and not chip_smoke.py, imports jax, jaxlib
-    or any module of the JAX package ``flac_codec_tpu``: no import
-    statement, relative or absolute, and no ``import_module`` or
-    ``__import__`` call, names one."""
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No module of the port, not chip_smoke.py, and none of the port's
+    tools (``tools/fuzz_roundtrip_torch.py``, ``tools/bench_*.py``,
+    ``tools/chain_latency.py``) imports jax, jaxlib or any module of the
+    JAX package ``flac_codec_tpu``: no import statement, relative or
+    absolute, and no ``import_module`` or ``__import__`` call, names
+    one."""
+    tools = ROOT / "tools"
+    port_tools = ([tools / "fuzz_roundtrip_torch.py",
+                   tools / "chain_latency.py"]
+                  + sorted(tools.glob("bench_*.py")))
+    assert len(port_tools) >= 6 and all(p.is_file() for p in port_tools)
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + port_tools)
     assert len(files) > 40
     for path in files:
         tree = ast.parse(path.read_text(), str(path))

@@ -991,3 +991,136 @@ def test_consumer_on_a_side_stream_reads_the_pcm(dev, device_parse):
         total = torch.stack(sums).sum(0).cpu()
     want = inter.reshape(-1, 2).astype(np.int64).sum(0)
     assert total.tolist() == want.tolist()
+
+
+# ---------------------------------------------------------------------------
+# One memory pool per stream
+# ---------------------------------------------------------------------------
+
+def _stream_graphs(stream) -> list:
+    """Every plan, parse and reconstruct graph captured on ``stream``."""
+    return [g for g in [*teb.PLAN_GRAPHS.values(), *tfs.PARSE_GRAPHS.values(),
+                        *tbd.RECONSTRUCT_GRAPHS.values()]
+            if g.stream.cuda_stream == stream.cuda_stream
+            and g.stream.device == stream.device]
+
+
+@pytest.mark.parametrize("device_parse", [False, True])
+def test_graphs_in_turns_on_one_stream_share_a_pool(dev, device_parse):
+    """Two plan configurations and a decode configuration replayed in
+    turns on one stream (A, B, A, decode, B), all captured into the
+    stream's one pool: the bytes and samples of ``graphs=False``."""
+    from flac_codec_tpu_torch import graphs
+
+    inter, n = _stereo_clip(16, frames=8)
+    opts = (Options.best(), Options.best().with_max_lpc_order(8))
+    data = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    outs = {}
+    for use_graphs in (True, False):
+        bufs, encs = [], []
+        for o in opts:
+            buf = io.BytesIO()
+            encs.append(BatchEncoder(buf, o, 44100, 16, 2, total_samples=n,
+                                     batch_frames=2, analysis="f64",
+                                     device=dev, graphs=use_graphs))
+            bufs.append(buf)
+        step = 2 * 4096 * 2
+        a, b = encs
+        with BatchDecoder(io.BytesIO(data), batch_frames=4, device=dev,
+                          device_parse=device_parse,
+                          graphs=use_graphs) as dec:
+            a.write(inter[:step])
+            b.write(inter[:step])
+            a.write(inter[step:2 * step])
+            pcm, _ = dec.read_batch_device()
+            b.write(inter[step:2 * step])
+            a.write(inter[2 * step:])
+            b.write(inter[2 * step:])
+        for enc in encs:
+            enc.finalize()
+        torch.cuda.synchronize()
+        outs[use_graphs] = ([buf.getvalue() for buf in bufs], pcm.cpu())
+    assert outs[True][0] == outs[False][0]
+    assert outs[True][0][0] == data
+    assert torch.equal(outs[True][1], outs[False][1])
+    frames = inter[:4096 * 4 * 2].reshape(4, 4096, 2).transpose(0, 2, 1)
+    assert np.array_equal(outs[True][1].numpy(), frames)
+    stream = shard_streams(batch_mesh([dev]))[0]
+    made = _stream_graphs(stream)
+    assert len(made) >= 3 + device_parse
+    assert {g.pool for g in made} == {graphs.stream_pool(stream)}
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under a plan's leaves."""
+    seen = {}
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            st = v.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    walk(tree)
+    return sum(seen.values())
+
+
+def test_a_smaller_capture_reuses_the_pool_of_a_larger(dev):
+    """On a stream whose pool holds a larger graph, a second capture
+    grows memory_reserved by no more than its static outputs plus 64
+    MiB (alone on a fresh stream it grows it by more): its temporaries
+    take the memory the first graph's left free.  Replayed after the
+    larger graph, it plans as the eager planner does."""
+    from chip_smoke import fresh_stream
+    from flac_codec_tpu_torch import graphs
+
+    kw = dict(bits_per_sample=16, block_size=4096, max_lpc_order=12,
+              max_partition_order=6, mid_side=True, exhaustive=True,
+              window_kind=("tukey", 0.5), analysis="f64", pack_budget=18,
+              frame_pack=True)
+    small_kw = {**kw, "max_lpc_order": 8}
+    stream = fresh_stream(dev)
+    big = teb.PlanGraph((256, 2, 4096), torch.int16, stream, **kw)
+    small = teb.PlanGraph((64, 2, 4096), torch.int16, stream, **small_kw)
+    alone = teb.PlanGraph((64, 2, 4096), torch.int16, fresh_stream(dev),
+                          **small_kw)
+    assert big.pool == small.pool == graphs.stream_pool(stream)
+    assert alone.pool != big.pool
+    limit = _storage_bytes(small.output) + (64 << 20)
+    assert small.reserved_bytes <= limit < alone.reserved_bytes
+    pcm = torch.as_tensor(np.random.default_rng(3).integers(
+        -9999, 9999, (64, 2, 4096)), dtype=torch.int16, device=dev)
+    torch.cuda.synchronize()
+    big.replay(torch.zeros((256, 2, 4096), dtype=torch.int16, device=dev))
+    out = small.replay(pcm)
+    stream.synchronize()
+    got = _card_leaves(out, 64)
+    want = _card_leaves(teb.encode_frames_plan(pcm, **small_kw), 64)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], k)
+
+
+def test_two_streams_of_one_card_keep_two_pools(dev):
+    """cuda:0 listed twice: each shard stream's graphs capture into that
+    stream's own pool, and the sharded encoder writes the host encoder's
+    bytes (as chip_smoke's phase 15 does at full size)."""
+    from flac_codec_tpu_torch import graphs
+
+    mesh = batch_mesh([dev, dev])
+    inter, n = _stereo_clip(16, frames=14)
+    want = _encode_on(FlacSampleWriter, inter, n, 16, 44100)
+    got = _encode_on(BatchEncoder, inter, n, 16, 44100, batch_frames=6,
+                     analysis="f64", mesh=mesh)
+    assert got == want
+    s0, s1 = shard_streams(mesh)
+    p0, p1 = graphs.stream_pool(s0), graphs.stream_pool(s1)
+    assert p0 != p1
+    for s, p in ((s0, p0), (s1, p1)):
+        made = _stream_graphs(s)
+        assert made and {g.pool for g in made} == {p}

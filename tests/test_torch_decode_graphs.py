@@ -291,18 +291,31 @@ class _FakeCUDAGraph:
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """``graphs.CapturedGraph`` on the CPU: the capture runs the function
-    eagerly, and ``memory_reserved`` grows by 5 a call."""
+    eagerly, ``memory_reserved`` grows by 5 a call, each
+    ``graph_pool_handle()`` is a new pair and ``captures`` records the
+    ``pool`` of each capture, in order."""
     reserved = iter(range(0, 10 ** 6, 5))
+    handles = iter(range(1, 10 ** 6))
+    captures = []
     null = contextlib.nullcontext
+
+    def graph(g, stream=None, pool=None):
+        captures.append(pool)
+        return null()
+
     cuda = types.SimpleNamespace(
         device=lambda d: null(), stream=lambda s: null(),
         synchronize=lambda d=None: None, empty_cache=lambda: None,
         memory_reserved=lambda d=None: next(reserved),
-        CUDAGraph=_FakeCUDAGraph, graph=lambda g, stream=None: null())
+        CUDAGraph=_FakeCUDAGraph, graph=graph,
+        graph_pool_handle=lambda: (0, next(handles)))
     monkeypatch.setattr(graphs, "torch", types.SimpleNamespace(cuda=cuda))
+    monkeypatch.setattr(graphs, "_POOLS", {})
+    monkeypatch.setattr(graphs, "POOL_BYTES", {})
     monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(
         kernels.LAUNCHES, 0))
-    return types.SimpleNamespace(device=torch.device("cpu"), cuda_stream=3)
+    return types.SimpleNamespace(device=torch.device("cpu"), cuda_stream=3,
+                                 captures=captures)
 
 
 def test_launch_tally_counts_once_per_replay(fake_cuda):
@@ -342,6 +355,65 @@ def test_decode_graphs_capture_their_functions(fake_cuda):
     rg = tbd.ReconstructGraph(fake_cuda, (8, 2, BS), "lpc", 12)
     assert rg.input.shape == (tbd.recon_len(8, 2, BS),)
     assert rg.output.shape == (8, 2, BS) and not rg.output.any()
+
+
+# encode_frames_plan's static arguments at the small block
+_PLAN_KW = dict(bits_per_sample=16, block_size=BS, max_lpc_order=8,
+                max_partition_order=2, mid_side=True, exhaustive=False,
+                window_kind=("tukey", 0.5), analysis="f64", pack_budget=18,
+                frame_pack=True)
+
+
+def _captures_on(stream) -> list:
+    """A plan, a parse and a reconstruct graph captured on ``stream``."""
+    from flac_codec_tpu_torch.ops import encode_batch as teb
+
+    return [teb.PlanGraph((2, 2, BS), torch.int16, stream, **_PLAN_KW),
+            tfs.ParseGraph(stream, 4, 1 << 10, BS, 2, 16),
+            tbd.ReconstructGraph(stream, (4, 2, BS), "lpc", 8)]
+
+
+def test_graphs_of_one_stream_capture_into_one_pool(fake_cuda):
+    """Every capture on one (device, stream), plan, parse or
+    reconstruct, passes the same pool handle; the stream's pool total is
+    the sum of its captures' growth."""
+    made = _captures_on(fake_cuda)
+    handle = graphs.stream_pool(fake_cuda)
+    assert fake_cuda.captures == [handle] * 3
+    assert [g.pool for g in made] == [handle] * 3
+    assert graphs.POOL_BYTES == {(fake_cuda.device, 3): 3 * 5}
+    assert graphs.stream_pool(fake_cuda) == handle
+
+
+@pytest.mark.parametrize("other", ["stream", "device"])
+def test_other_streams_and_devices_get_other_pools(fake_cuda, other):
+    """A second stream of the device, or the same stream number on
+    another device, captures into a pool of its own."""
+    second = types.SimpleNamespace(
+        device=(torch.device("cpu", 1) if other == "device"
+                else fake_cuda.device),
+        cuda_stream=3 if other == "device" else 4)
+    a = _captures_on(fake_cuda)
+    b = _captures_on(second)
+    first, last = fake_cuda.captures[:3], fake_cuda.captures[3:]
+    assert len(set(first)) == len(set(last)) == 1
+    assert first[0] != last[0]
+    assert {g.pool for g in a} == {graphs.stream_pool(fake_cuda)}
+    assert {g.pool for g in b} == {graphs.stream_pool(second)}
+    assert sorted(graphs.POOL_BYTES.values()) == [15, 15]
+
+
+def test_a_stream_whose_graphs_are_gone_gets_a_new_pool(fake_cuda):
+    """Once every graph of a stream has been dropped, the next capture
+    there starts a new pool (the old one is released when its memory is
+    free), and its total starts again."""
+    made = _captures_on(fake_cuda)
+    handle = made[0].pool
+    del made
+    again = _captures_on(fake_cuda)
+    assert {g.pool for g in again} == {graphs.stream_pool(fake_cuda)}
+    assert again[0].pool != handle
+    assert graphs.POOL_BYTES == {(fake_cuda.device, 3): 15}
 
 
 def test_decode_graph_keys_like_jit_plus_stream(monkeypatch):
