@@ -109,15 +109,23 @@ non-zero without one, and outside a checkout).  Phases:
    first format again (bytes == its first encode); ``memory_reserved``
    after each format, and its growth over the phase, which must stay
    within the largest single capture's pool (the 8-channel
-   configuration captured alone on a fresh stream) plus 2 GiB.
+   configuration captured alone on a fresh stream) plus 2 GiB, and its
+   peak over the phase, which may pass that growth by at most 1 GiB;
+21. a mesh with the device parse asked for: the 120 s 16-bit stream
+   through ``BatchDecoder(mesh=[cuda:0, cuda:0], device_parse=True)``,
+   which turns the device parse off as the JAX package does; the PCM
+   must equal the unsharded device-parse decode's (and the input), K3
+   must launch and K4 not, and every device batch must be a reconstruct
+   replay per shard holding a real frame.
 
 Every encoder and decoder here runs with CUDA graphs on (the default)
 but those of phases 17 and 18 that ask for ``graphs=False``; every graph
-of a stream captures into that stream's one memory pool
+of a stream warms up and captures inside that stream's one memory pool
 (``graphs.stream_pool``); each graph's capture prints the growth of
-``torch.cuda.memory_reserved()`` and its stream's pool total,
+``torch.cuda.memory_reserved()`` it left, its peak during the warm-up
+and capture, and its stream's pool total,
 phases 3-4, 12, 14 and 15 check that every encode batch was a replay,
-and phases 7, 8, 10, 11, 12, 13 and 15 that every decode batch was.
+and phases 7, 8, 10, 11, 12, 13, 15 and 21 that every decode batch was.
 Every time is printed beside the card's ``nvidia-smi`` name and power
 limit.  Any failed check raises.  The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -1551,17 +1559,27 @@ def pool_totals(graph=None) -> str:
                      for (d, s), b in totals.items()) or "none"
 
 
+def capture_memory(graph) -> str:
+    """A graph's ``reserved_bytes`` (the growth of ``memory_reserved`` its
+    warm-up and capture left), its ``peak_bytes`` (their peak above the
+    reserve before them; "not kept" for a checkout without it) and its
+    stream's pool total, in MiB."""
+    peak = getattr(graph, "peak_bytes", None)
+    peak = "not kept" if peak is None else f"+{peak / 2**20:.1f} MiB"
+    return (f"+{graph.reserved_bytes / 2**20:.1f} MiB (peak {peak}; its "
+            f"stream's pool {pool_totals(graph)})")
+
+
 def report_captures(label: str, before) -> list:
     """Print each decode graph captured since ``before`` (a set of
     ``decode_graphs()`` keys) with the growth of ``memory_reserved`` its
-    capture left and its seconds, then their count and totals; returns
-    the new graphs."""
+    warm-up and capture left and their peak, and its seconds, then their
+    count and totals; returns the new graphs."""
     new = [(k, g) for k, g in decode_graphs().items() if k not in before]
     for key, g in new:
         tally = {k: v for k, v in g.tally.items() if v}
         print(f"  captured {decode_graph_name(key)}: memory_reserved "
-              f"+{g.reserved_bytes / 2**20:.1f} MiB (its stream's pool "
-              f"{pool_totals(g)}), warm-up and capture "
+              f"{capture_memory(g)}, warm-up and capture "
               f"{g.capture_seconds:.3f} s, launches a replay {tally}")
     print(f"{label}: {len(new)} decode graphs captured, "
           f"{sum(g.capture_seconds for _, g in new):.2f} s of warm-up and "
@@ -1763,6 +1781,44 @@ def check_mesh(dev, pcm16, data16, streams) -> None:
         report_captures(f"mesh {name} decode", before)
 
 
+def check_mesh_device_parse(dev, data16, pcm16) -> None:
+    """Phase 21: the 120 s 16-bit stream through ``BatchDecoder(mesh=
+    [cuda:0, cuda:0], device_parse=True)``, which decodes through the
+    host parse as the JAX package does: the PCM of the unsharded
+    device-parse decode (and the input), K3 launched and K4 not, every
+    device batch a reconstruct replay per shard holding a real frame."""
+    import torch
+
+    from flac_codec_tpu_torch import kernels
+    from flac_codec_tpu_torch.parallel.mesh import batch_mesh
+
+    want, _ = decode_port(data16, dev, device_parse=True)
+    mesh = batch_mesh([dev, dev])
+    kernels.reset_launches()
+    before, stats = set(decode_graphs()), {}
+    got, dec = decode_port(data16, dev, device_parse=True, mesh=mesh,
+                           stats=stats)
+    launches = dict(kernels.LAUNCHES)
+    if dec._device_parse:
+        raise AssertionError("mesh with device_parse=True: the device "
+                             "parse stayed on")
+    if not (torch.equal(got, want) and np.array_equal(
+            got.cpu().numpy().reshape(-1), pcm16)):
+        raise AssertionError("mesh with device_parse=True: PCM differs "
+                             "from the unsharded device-parse decode")
+    check_launches("mesh with device_parse=True", launches,
+                   ("predict_lpc",), ("parse_frame_bodies",))
+    print(f"mesh [{dev}, {dev}] with device_parse=True: the device parse "
+          f"is off under the mesh (the host parse filled each batch), PCM "
+          f"== the unsharded device-parse decode's and the input; "
+          f"{dec.device_frames} device frames, {dec.host_frames} host "
+          f"frames, {stats['batches']} device batches, "
+          f"{stats['reconstruct']} reconstruct replays (one per shard "
+          f"holding a real frame), {stats.get('parse', 0)} parse replays; "
+          f"launches {launches}")
+    report_captures("mesh with device_parse=True", before)
+
+
 def graph_replays() -> dict:
     """Each captured plan graph's replays so far, by key."""
     from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
@@ -1805,8 +1861,7 @@ def check_replays(label: str, before: dict, want: int) -> None:
         if key not in before:
             tally = {k: v for k, v in g.tally.items() if v}
             print(f"  captured {graph_name(key)}: memory_reserved "
-                  f"+{g.reserved_bytes / 2**20:.1f} MiB (its stream's pool "
-                  f"{pool_totals(g)}), warm-up and capture "
+                  f"{capture_memory(g)}, warm-up and capture "
                   f"{g.capture_seconds:.2f} s, launches a replay {tally}")
     got = sum(n - before.get(k, 0) for k, n in graph_replays().items())
     if got != want:
@@ -1916,8 +1971,7 @@ def compare_graphs(dev, pcm16, trace_path: str) -> None:
                   f"profiler kernel and copy time {prof}, {api:.0f} host "
                   f"CUDA API calls; on {card()}")
         print(f"  its graph {graph_name(key)}: memory_reserved "
-              f"+{graph.reserved_bytes / 2**20:.1f} MiB (its stream's pool "
-              f"{pool_totals(graph)}), warm-up and capture "
+              f"{capture_memory(graph)}, warm-up and capture "
               f"{graph.capture_seconds:.2f} s")
 
 
@@ -2000,8 +2054,7 @@ def compare_decode_graphs(dev, clips, trace_path: str) -> None:
                       f"batches); on {card()}")
             for key, g, n in used.values():
                 print(f"  its graph {decode_graph_name(key)}: "
-                      f"memory_reserved +{g.reserved_bytes / 2**20:.1f} MiB "
-                      f"(its stream's pool {pool_totals(g)}), warm-up and "
+                      f"memory_reserved {capture_memory(g)}, warm-up and "
                       f"capture {g.capture_seconds:.3f} s")
 
 
@@ -2050,6 +2103,10 @@ LIBRARY_FRAMES = 5
 # phase 20 fails if memory_reserved grows past the largest single
 # capture's pool by more than this
 LIBRARY_SLACK = 2 << 30
+# and if its peak passes that growth by more than this: a warm-up takes
+# its temporaries from its stream's pool, so only buffers outside the
+# graphs (a batch's PCM, staging) come and go
+PEAK_SLACK = 1 << 30
 
 
 def library_clip(bps: int, ch: int, block: int, seed: int) -> np.ndarray:
@@ -2072,11 +2129,15 @@ def mixed_library(dev, check: bool = True) -> dict:
     encode).  Prints ``memory_reserved`` after each format and the
     growth over the phase, and the largest single capture's pool: the
     growth of capturing the largest configuration (8 channels, block
-    16384, f64 and f32) alone on a fresh stream.  With ``check``, raises
-    if the growth passes that pool plus ``LIBRARY_SLACK``.  Returns the
-    numbers."""
+    16384, f64 and f32) alone on a fresh stream, with the peak of each
+    such capture.  The phase's peak is ``max_memory_reserved`` across
+    the resets each capture makes (``graphs.max_memory_reserved``; a
+    checkout without it resets nothing).  With ``check``, raises if the
+    growth passes that pool plus ``LIBRARY_SLACK``, or the peak passes
+    the growth by more than ``PEAK_SLACK``.  Returns the numbers."""
     import torch
 
+    from flac_codec_tpu_torch import graphs
     from flac_codec_tpu_torch.decode import Verified, verify
     from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
     from flac_codec_tpu_torch.ops.encode_batch import PlanGraph
@@ -2093,7 +2154,8 @@ def mixed_library(dev, check: bool = True) -> dict:
     mib = 2 ** 20
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    getattr(graphs, "reset_peak_memory_stats",
+            torch.cuda.reset_peak_memory_stats)(dev)
     start = torch.cuda.memory_reserved(dev)
     print(f"mixed library: memory_reserved {start / mib:.1f} MiB at the "
           f"start; on {card()}")
@@ -2145,12 +2207,14 @@ def mixed_library(dev, check: bool = True) -> dict:
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     growth = torch.cuda.memory_reserved(dev) - start
-    peak = torch.cuda.max_memory_reserved(dev) - start
+    peak = getattr(graphs, "max_memory_reserved",
+                   torch.cuda.max_memory_reserved)(dev) - start
     secs = time.perf_counter() - t0
-    alone = {}
+    alone, alone_peak = {}, {}
     for analysis, (shape, dtype, kw) in largest.items():
         g = PlanGraph(shape, dtype, fresh_stream(dev), **kw)
         alone[analysis] = g.reserved_bytes
+        alone_peak[analysis] = getattr(g, "peak_bytes", None)
         del g
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -2160,15 +2224,26 @@ def mixed_library(dev, check: bool = True) -> dict:
           f"byte-identical; memory_reserved growth {growth / mib:.1f} MiB "
           f"(peak {peak / mib:.1f} MiB); the largest single capture's pool "
           f"{pool / mib:.1f} MiB (8 ch block 16384, each alone on a "
-          "fresh stream: " + ", ".join(f"{a} {b / mib:.1f} MiB"
-                                       for a, b in alone.items())
-          + f"); limit {(pool + LIBRARY_SLACK) / mib:.1f} MiB; on {card()}")
+          "fresh stream: " + ", ".join(
+              f"{a} {b / mib:.1f} MiB (peak "
+              + ("not kept" if alone_peak[a] is None
+                 else f"{alone_peak[a] / mib:.1f} MiB") + ")"
+              for a, b in alone.items())
+          + f"); limit {(pool + LIBRARY_SLACK) / mib:.1f} MiB at rest, "
+          f"{(growth + PEAK_SLACK) / mib:.1f} MiB at the peak; on {card()}")
     if check and growth > pool + LIBRARY_SLACK:
         raise AssertionError(f"mixed library: memory_reserved grew "
                              f"{growth / mib:.1f} MiB, past the largest "
                              f"pool {pool / mib:.1f} MiB + 2 GiB")
+    if check and peak - growth > PEAK_SLACK:
+        raise AssertionError(f"mixed library: memory_reserved peaked at "
+                             f"+{peak / mib:.1f} MiB, more than 1 GiB above "
+                             f"its growth at rest {growth / mib:.1f} MiB")
     return {"growth_mib": growth / mib, "peak_mib": peak / mib,
-            "largest_pool_mib": pool / mib, "seconds": secs}
+            "largest_pool_mib": pool / mib,
+            "largest_peak_mib": {a: None if b is None else b / mib
+                                 for a, b in alone_peak.items()},
+            "seconds": secs}
 
 
 def fresh_stream(dev):
@@ -2415,6 +2490,9 @@ def main() -> int:
 
     # ---- 20. memory across a mixed library ----
     mixed_library(dev)
+
+    # ---- 21. a mesh with the device parse asked for ----
+    check_mesh_device_parse(dev, data16, pcm16)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

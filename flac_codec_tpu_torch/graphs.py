@@ -17,37 +17,72 @@ Memory.  An XLA executable takes its temporaries from one allocator at
 each call and gives them back when the call ends, so a JAX process
 holds about its largest configuration's memory, however many it has
 met.  Every graph captured on one (device, stream) therefore captures
-into that stream's one memory pool (:func:`stream_pool`): graphs on one
-stream never run at once, so their temporaries can share memory, and
-the pool holds about the largest graph's temporaries plus every graph's
-static outputs, not the sum of private pools.  A pool is released only
-when every graph of its stream has been dropped.
+into that stream's one memory pool (:func:`stream_pool`, a
+``torch.cuda.MemPool``): graphs on one stream never run at once, so
+their temporaries can share memory, and the pool holds about the
+largest graph's temporaries plus every graph's static outputs, not the
+sum of private pools.  A pool is released only when every graph of its
+stream has been dropped; the stream's next capture makes a new one.
 
-The invariant this rests on: another graph's replay on the same stream
-may reuse a graph's temporaries, and so may overwrite its static
-output.  Every read of a static output is therefore queued on the
-graph's stream before that stream's next replay of any graph.  The
-readers, each queued on the graph's stream right after its replay:
+The eager warm-up before each capture runs inside the same pool
+(``torch.cuda.use_mem_pool``), so its temporaries come from the free
+blocks that earlier captures left, go back to them, and serve the
+capture that follows: a process peaks near its largest configuration,
+as a JAX process does, and not at a warm-up's worth above its pool.
 
-- ``parallel.batch.BatchEncoder._dispatch_batch``: the copies of every
-  plan leaf into the batch's pinned host buffers, then an event;
-- ``parallel.batch_decode.BatchDecoder._read_batch_device_parse``: the
-  parse graph's ``gate.tolist()`` (synchronous), then, in
-  ``_reconstruct``, the copies of ``parsed`` into the reconstruct
-  graph's static input, before the reconstruct replay;
-- ``BatchDecoder._reconstruct``: the reconstruct output's ``clone()``
-  (or ``.to(home)``), which the consumer's stream waits for
-  (``wait_stream``) and keeps (``record_stream``);
-- ``chip_smoke.replay_ms`` and ``profile_batches`` replay one graph back
-  to back and read no output.
+Two invariants make the sharing safe.
 
-Static inputs stay out of the pools: ``make_input()`` runs outside the
-capture, so each is an ordinary allocation.  A capture starts after
-``torch.cuda.synchronize``, so it never races a replay in flight.
+1. Another graph's replay on the same stream may reuse a graph's
+   temporaries, and so may overwrite its static output.  Every read of a
+   static output is therefore queued on the graph's stream before that
+   stream's next replay of any graph.  The readers, each queued on the
+   graph's stream right after its replay:
+
+   - ``parallel.batch.BatchEncoder._dispatch_batch``: the copies of
+     every plan leaf into the batch's pinned host buffers, then an event;
+   - ``parallel.batch_decode.BatchDecoder._read_batch_device_parse``:
+     the parse graph's ``gate.tolist()`` (synchronous), then, in
+     ``_reconstruct``, the copies of ``parsed`` into the reconstruct
+     graph's static input, before the reconstruct replay;
+   - ``BatchDecoder._reconstruct``: the reconstruct output's ``clone()``
+     (or ``.to(home)``), which the consumer's stream waits for
+     (``wait_stream``) and keeps (``record_stream``);
+   - ``chip_smoke.replay_ms`` and ``profile_batches`` replay one graph
+     back to back and read no output.
+
+2. Nothing allocated under the pool outlives the call that allocated it,
+   except a graph's static output.  A pool's free blocks are the
+   scratch of the graphs captured before, and each of their replays
+   writes there, so a tensor that a warm-up left in the pool would be
+   overwritten, silently.  So:
+
+   - static inputs are made by ``make_input()`` before the warm-up
+     enters the pool;
+   - the device caches a call builds on first use and keeps
+     (``ops.common.device_constant``, ``ops.lpc.window_array``,
+     ``ops.framepack._crc_planes``) build their tensor through
+     :func:`outside_pool`, which runs the build on a thread of its own:
+     ``use_mem_pool`` routes only its own thread's allocations;
+   - cuBLAS keeps a workspace per (handle, stream) from its first call
+     there, so :func:`_warm_libraries` makes one small product on the
+     stream before the warm-up enters the pool.
+
+   The helper was chosen over a pre-pass that builds every constant of
+   a configuration before its warm-up, because only running the
+   function finds which constants it needs, and because on the card a
+   tensor built on another thread inside ``use_mem_pool`` lands outside
+   the pool.  ``tests/test_torch_cuda.py`` checks after each capture
+   that every block still allocated in the pool is a static output.
+
+A capture starts after ``torch.cuda.synchronize``, so neither its
+warm-up nor the capture races a replay in flight.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import threading
 import time
 import weakref
 
@@ -55,46 +90,112 @@ import torch
 
 from . import kernels
 
-# each (device, stream)'s graph memory pool: [pool handle, its graphs
-# (weak references)]; a stream whose graphs have all been dropped gets a
-# new handle, since the old pool is released once its blocks are free
+# each (device, stream)'s graph memory pool, a weak reference to its
+# torch.cuda.MemPool: the stream's graphs hold the pool, so it lives as
+# long as one of them, and a stream whose graphs have all been dropped
+# gets a new pool
 _POOLS: dict = {}
 
-# each (device, stream)'s pool total: the growth of memory_reserved its
-# captures left since the pool's first capture (the pool, the graphs'
-# static inputs and any constant they built)
+# each live pool's total, by (device, stream): the growth of
+# memory_reserved its captures left (the pool, the graphs' static inputs
+# and any constant they built)
 POOL_BYTES: dict = {}
+
+# the pool the current thread's allocations go to during a warm-up
+_ROUTED = threading.local()
+
+# each device's highest memory_reserved before a capture reset the peak
+# (max_memory_reserved() folds it back in)
+_PEAKS: dict = {}
 
 
 def stream_pool(stream):
-    """The memory pool handle every graph captured on ``stream``
-    shares."""
+    """The ``torch.cuda.MemPool`` every graph captured on ``stream``
+    shares, and every warm-up there allocates from."""
     key = (stream.device, stream.cuda_stream)
-    entry = _POOLS.get(key)
-    if entry is None or not len(entry[1]):
-        entry = _POOLS[key] = [torch.cuda.graph_pool_handle(),
-                               weakref.WeakSet()]
+    pool = _POOLS[key]() if key in _POOLS else None
+    if pool is None:
+        pool = torch.cuda.MemPool()
+        _POOLS[key] = weakref.ref(pool)
         POOL_BYTES[key] = 0
-    return entry[0]
+        weakref.finalize(pool, POOL_BYTES.pop, key, None)
+    return pool
+
+
+def outside_pool(build):
+    """``build()``, with whatever it allocates taken from the ordinary
+    caching allocator even during a warm-up, which routes its thread's
+    allocations to a pool: there the build runs on a thread of its own.
+    For a tensor that outlives the call that builds it (invariant 2 of
+    the module docstring)."""
+    if getattr(_ROUTED, "pool", None) is None:
+        return build()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        return ex.submit(build).result()
+
+
+@contextlib.contextmanager
+def _in_pool(pool, device):
+    """Route this thread's allocations on ``device`` to ``pool``."""
+    with torch.cuda.use_mem_pool(pool, device):
+        _ROUTED.pool = pool
+        try:
+            yield
+        finally:
+            _ROUTED.pool = None
+
+
+def _warm_libraries(device) -> None:
+    """One small matrix product on the current stream, outside any pool,
+    so that cuBLAS's workspace for this thread's handle and the stream
+    exists before a warm-up: made inside a pool, it would stay there."""
+    x = torch.ones((2, 2), dtype=torch.float32, device=device)
+    torch.mm(x, x)
+
+
+def _card(device):
+    """``device`` as a torch.device with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def max_memory_reserved(device) -> int:
+    """``torch.cuda.max_memory_reserved(device)`` since the caller's last
+    :func:`reset_peak_memory_stats`, across the resets each capture
+    makes to take its ``peak_bytes``."""
+    return max(_PEAKS.get(_card(device), 0),
+               torch.cuda.max_memory_reserved(device))
+
+
+def reset_peak_memory_stats(device) -> None:
+    """``torch.cuda.reset_peak_memory_stats(device)``, for
+    :func:`max_memory_reserved`."""
+    _PEAKS.pop(_card(device), None)
+    torch.cuda.reset_peak_memory_stats(device)
 
 
 class CapturedGraph:
     """``fn(input)`` captured once on ``stream`` as a CUDA graph, into the
-    stream's shared memory pool (``pool``, :func:`stream_pool`).
+    stream's shared memory pool (``pool``, :func:`stream_pool`), which it
+    holds.
 
     ``make_input()`` builds the static input tensor on the stream's
-    device.  One eager call on ``stream`` goes first (it builds the
-    kernel library and warms every library handle and cached constant on
-    that stream), then the capture, which runs nothing: the
+    device, outside the pool.  One eager call on ``stream`` goes first,
+    inside the pool (it builds the kernel library and warms every
+    cached constant on that stream; its temporaries go back to the pool
+    for the capture), then the capture, which runs nothing: the
     launches it would make are tallied (``kernels.launches_apart``) and
-    counted at each replay.  A failed capture or replay raises; nothing
-    falls back to eager.
+    counted at each replay.  A failed warm-up, capture or replay raises;
+    nothing falls back to eager or to memory outside the pool.
 
     ``input`` and ``output`` are the static tensors; ``replays``,
     ``tally``, ``reserved_bytes`` (the growth of ``memory_reserved`` the
-    capture left: what the shared pool grew by, the graph's input and
-    any constant it built) and ``capture_seconds`` (warm-up and capture)
-    describe it.
+    warm-up and the capture left: what the shared pool grew by, the
+    graph's input and any constant it built), ``peak_bytes``
+    (``max_memory_reserved`` during them, less ``memory_reserved``
+    before) and ``capture_seconds`` (warm-up and capture) describe it.
     """
 
     def __init__(self, fn, make_input, stream):
@@ -107,19 +208,21 @@ class CapturedGraph:
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
+            _PEAKS[_card(dev)] = max_memory_reserved(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
             reserved = torch.cuda.memory_reserved(dev)
             self.input = make_input()
-            fn(self.input)
+            _warm_libraries(dev)
+            with _in_pool(self.pool, dev):
+                fn(self.input)
             self.graph = torch.cuda.CUDAGraph()
             with kernels.launches_apart() as self.tally:
                 with torch.cuda.graph(self.graph, stream=stream,
-                                      pool=self.pool):
+                                      pool=self.pool.id):
                     self.output = fn(self.input)
             torch.cuda.synchronize(dev)
-            # the warm-up's blocks were returned by the capture's
-            # empty_cache, so what is left is the graph's
             self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
-        _POOLS[key][1].add(self)
+            self.peak_bytes = torch.cuda.max_memory_reserved(dev) - reserved
         POOL_BYTES[key] += self.reserved_bytes
         self.capture_seconds = time.perf_counter() - t0
 

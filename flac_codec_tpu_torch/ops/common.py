@@ -11,6 +11,8 @@ import functools
 
 import torch
 
+from ..graphs import outside_pool
+
 # sentinel "invalid candidate" bit cost
 BIG = 1 << 62
 
@@ -45,9 +47,12 @@ def device_constant(values: tuple, dtype: torch.dtype,
     The planner's small tables come from here so that a CUDA graph
     capture (which forbids the synchronous host-to-device copy that
     ``torch.tensor`` makes) finds them on the card.  Nothing is evicted:
-    a captured graph reads the tensor by its address.
+    a captured graph reads the tensor by its address.  Built outside any
+    graph memory pool (``graphs.outside_pool``): it outlives the warm-up
+    that first asks for it.
     """
-    return torch.tensor(values, dtype=dtype, device=device)
+    return outside_pool(
+        lambda: torch.tensor(values, dtype=dtype, device=device))
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..graphs import outside_pool
 from .bitpack import pack_residual_sections
 from .common import TYPE_CONSTANT, TYPE_FIXED, TYPE_LPC, TYPE_VERBATIM
 from .packpanel import MERGE_SLACK, splice_subframes
@@ -50,10 +51,13 @@ def crc16_neg_pow_table(nbits: int) -> np.ndarray:
 def _crc_planes(W: int, device: str) -> torch.Tensor:
     """(W*32, 16) float32 bit planes of the weight table: row w*32 + j
     weights bit j (MSB-first) of word w.  Never evicted: a captured CUDA
-    graph reads the tensor by its address."""
+    graph reads the tensor by its address.  Built outside any graph
+    memory pool (``graphs.outside_pool``): it outlives the warm-up that
+    first asks for it."""
     t = crc16_neg_pow_table(W * 32).astype(np.int64)
     planes = (t[:, None] >> np.arange(16)[None, :]) & 1
-    return torch.as_tensor(planes, dtype=torch.float32, device=device)
+    return outside_pool(lambda: torch.as_tensor(planes, dtype=torch.float32,
+                                                device=device))
 
 
 def crc16_inner(words: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..graphs import outside_pool
 from ..models import lpc as host_lpc
 from ..models.lpc import precision_for_block_size, window as host_window
 from .common import round_half_away
@@ -42,9 +43,10 @@ def window_array(kind, n: int, dtype: torch.dtype,
                  device) -> torch.Tensor:
     """Static window coefficients (host-generated, then moved), built on
     first use and then the same tensor for every call with the same
-    arguments (``common.device_constant`` says why; callers must not
-    write to it)."""
-    return torch.as_tensor(host_window(kind, n), dtype=dtype, device=device)
+    arguments (``common.device_constant`` says why, and why outside any
+    graph memory pool; callers must not write to it)."""
+    return outside_pool(lambda: torch.as_tensor(host_window(kind, n),
+                                                dtype=dtype, device=device))
 
 
 def autocorrelate(windowed: torch.Tensor, max_order: int) -> torch.Tensor:

@@ -30,8 +30,9 @@ it; ``parse_fallbacks`` counts such batches.
 With ``mesh`` (``parallel.mesh``) the host parse fills each batch as
 before, then each device reconstructs one contiguous shard of its frames
 on a stream of its own, and the shards are gathered in order onto the
-mesh's first device.  The device parse does not run under a mesh: asking
-for both raises, where the JAX package turns the device parse off.
+mesh's first device.  The device parse does not run under a mesh: with
+``device_parse=True`` the host parse fills each batch, as the JAX
+package turns the device parse off under a mesh.
 
 The JAX package jits the device parse (``parse_frame_bodies`` and
 ``parse_gate``) and ``_device_reconstruct``.  The counterparts here are
@@ -210,9 +211,6 @@ class BatchDecoder:
                  device_parse: bool = False, mesh=None, graphs: bool = True):
         self.mesh = None if mesh is None else batch_mesh(mesh)
         if self.mesh is not None:
-            if device_parse:
-                raise ValueError("BatchDecoder: device_parse=True does not "
-                                 "run under a mesh")
             self.device, devices = self.mesh[0], self.mesh
         else:
             self.device = torch.device(device)
@@ -244,7 +242,8 @@ class BatchDecoder:
         self._fixed_blocks = (si.minimum_block_size == si.maximum_block_size
                               and si.maximum_block_size > 0)
         self._device_parse = (device_parse and self._fixed_blocks
-                              and si.bits_per_sample <= 24)
+                              and si.bits_per_sample <= 24
+                              and self.mesh is None)
         # the pinned upload buffer on CUDA, and the events of its last
         # copies
         self._staging = None

@@ -1124,3 +1124,164 @@ def test_two_streams_of_one_card_keep_two_pools(dev):
     for s, p in ((s0, p0), (s1, p1)):
         made = _stream_graphs(s)
         assert made and {g.pool for g in made} == {p}
+
+
+# ---------------------------------------------------------------------------
+# Warm-ups inside the stream's pool
+# ---------------------------------------------------------------------------
+
+def _pool_segments(pool) -> list:
+    """The allocator's segments of ``pool``."""
+    return [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == tuple(pool.id)]
+
+
+def _live_blocks(pool) -> set:
+    """The address of each block of ``pool`` that is allocated."""
+    live = set()
+    for seg in _pool_segments(pool):
+        addr = seg["address"]
+        for block in seg["blocks"]:
+            if block["state"] == "active_allocated":
+                live.add(addr)
+            addr += block["size"]
+    return live
+
+
+def _in_pool(t: torch.Tensor, pool) -> bool:
+    ptr = t.untyped_storage().data_ptr()
+    return any(s["address"] <= ptr < s["address"] + s["total_size"]
+               for s in _pool_segments(pool))
+
+
+def _storages(tree) -> set:
+    """The address of each distinct storage under a graph's output."""
+    out = set()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.add(v.untyped_storage().data_ptr())
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    walk(tree)
+    return out
+
+
+def _plan_kw(block: int, bps: int, channels: int, analysis: str,
+             **opts) -> dict:
+    o = Options.best().with_block_size(block)
+    for name, v in opts.items():
+        o = getattr(o, f"with_{name}")(v)
+    return BatchEncoder(io.BytesIO(), o, 44100, bps, channels,
+                        analysis=analysis, device="cuda")._plan_kw
+
+
+def test_a_capture_leaves_only_static_outputs_in_the_pool(dev):
+    """After each capture on a stream (a plan graph, a second one whose
+    constants its warm-up builds on the first one's free scratch, a
+    parse and a reconstruct graph), every block still allocated in the
+    stream's pool is a graph's static output: nothing the warm-ups
+    allocated outlives them there, and the constants the second graph
+    built lie outside the pool."""
+    from chip_smoke import fresh_stream
+    from flac_codec_tpu_torch import graphs
+    from flac_codec_tpu_torch.ops import framepack, lpc
+
+    stream = fresh_stream(dev)
+    made = []
+    # block 2304 is no other test's: its window and CRC planes are new
+    misses = (lpc.window_array.cache_info().misses,
+              framepack._crc_planes.cache_info().misses)
+    for build in (
+            lambda: teb.PlanGraph((64, 2, 4096), torch.int16, stream,
+                                  **_plan_kw(4096, 16, 2, "f64")),
+            lambda: teb.PlanGraph((16, 2, 2304), torch.int16, stream,
+                                  **_plan_kw(2304, 16, 2, "f64")),
+            lambda: tfs.ParseGraph(stream, 64, 1 << 20, 4096, 2, 16),
+            lambda: tbd.ReconstructGraph(stream, (64, 2, 4096), "lpc", 12)):
+        made.append(build())
+        torch.cuda.synchronize()
+        pool = graphs.stream_pool(stream)
+        assert {g.pool for g in made} == {pool}
+        outputs = set().union(*(_storages(g.output) for g in made))
+        assert _live_blocks(pool) <= outputs
+        assert made[-1].peak_bytes >= made[-1].reserved_bytes >= 0
+    assert lpc.window_array.cache_info().misses > misses[0]
+    assert framepack._crc_planes.cache_info().misses > misses[1]
+    card = made[1].input.device
+    win = lpc.window_array(("tukey", 0.5), 2304, torch.float64, card)
+    planes = framepack._crc_planes(
+        framepack.frame_slot_words(2, 2304, 18), str(card))
+    assert not _in_pool(win, pool) and not _in_pool(planes, pool)
+
+
+def test_a_warm_up_on_the_scratch_of_other_graphs_keeps_its_constants(dev):
+    """A, B, A, decode, B on one stream, where B's warm-up first builds
+    its window and CRC planes while the stream's pool holds A's free
+    scratch: every replay of A writes that scratch, and B still writes
+    the bytes of ``graphs=False`` and of the host encoder, and the
+    decode gives the samples of ``graphs=False``."""
+    inter, n = _stereo_clip(16, frames=8)
+    opts = (Options.best(), Options.best().with_block_size(2560))
+    want = []
+    for o in opts:
+        buf = io.BytesIO()
+        host = FlacSampleWriter(buf, o, 44100, 16, 2, total_samples=n)
+        host.write(inter)
+        host.finalize()
+        want.append(buf.getvalue())
+    misses = tlpc.window_array.cache_info().misses
+    outs = {}
+    for use_graphs in (True, False):
+        bufs, encs = [], []
+        for o in opts:
+            buf = io.BytesIO()
+            encs.append(BatchEncoder(buf, o, 44100, 16, 2, total_samples=n,
+                                     batch_frames=2, analysis="f64",
+                                     device=dev, graphs=use_graphs))
+            bufs.append(buf)
+        a, b = encs
+        step = 2 * 4096 * 2
+        with BatchDecoder(io.BytesIO(want[0]), batch_frames=4, device=dev,
+                          graphs=use_graphs) as dec:
+            a.write(inter[:step])
+            b.write(inter[:step])
+            a.write(inter[step:2 * step])
+            pcm, _ = dec.read_batch_device()
+            b.write(inter[step:2 * step])
+            a.write(inter[2 * step:])
+            b.write(inter[2 * step:])
+        for enc in encs:
+            enc.finalize()
+        torch.cuda.synchronize()
+        outs[use_graphs] = ([buf.getvalue() for buf in bufs], pcm.cpu())
+        if use_graphs:
+            assert tlpc.window_array.cache_info().misses > misses
+    assert outs[True][0] == outs[False][0] == want
+    assert torch.equal(outs[True][1], outs[False][1])
+
+
+def test_eight_channel_f32_capture_fits_beside_the_f64_pool(dev):
+    """The 8-channel 24-bit block-16384 f32 plan graph, captured after
+    the f64 one on the same stream, raises ``max_memory_reserved`` by at
+    most 1 GiB above what was reserved before it: its warm-up and
+    capture run on the f64 graph's free scratch."""
+    from chip_smoke import fresh_stream
+
+    stream = fresh_stream(dev)
+    shape = (256, 8, 16384)
+    f64 = teb.PlanGraph(shape, torch.int32, stream,
+                        **_plan_kw(16384, 24, 8, "f64"))
+    f32 = teb.PlanGraph(shape, torch.int32, stream,
+                        **_plan_kw(16384, 24, 8, "f32"))
+    assert f32.pool is f64.pool
+    assert f32.peak_bytes <= 1 << 30, (f64.reserved_bytes, f64.peak_bytes,
+                                       f32.reserved_bytes, f32.peak_bytes)
+    del f64, f32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()

@@ -359,6 +359,54 @@ def test_corpus_stream_matches_manifest_and_jax(name):
     np.testing.assert_array_equal(got, _jax_decode(data, 4))
 
 
+def _mesh_decode(data, mesh, device_parse):
+    with BatchDecoder(io.BytesIO(data), batch_frames=4, device="cpu",
+                      mesh=mesh, device_parse=device_parse) as dec:
+        got = dec.read_all_device()
+    return got.numpy().astype(np.int64), dec
+
+
+def test_mesh_with_device_parse_decodes_through_the_host_parse():
+    """``mesh`` with ``device_parse=True`` decodes as the JAX package
+    does: the device parse is off, the host parse fills each batch, the
+    shards reconstruct it, and the PCM is the input's, the unsharded
+    device-parse decode's and the JAX decoder's."""
+    from flac_codec_tpu.parallel.mesh import batch_mesh as jax_batch_mesh
+
+    opts = Options(block_size=1024)
+    n = 1024 * 11 + 300
+    inter = _music(np.random.default_rng(15), n, 2, 16)
+    data = _stream(inter, opts, 44100, 16, 2, n)
+    got, dec = _mesh_decode(data, ["cpu", "cpu"], True)
+    assert not dec._device_parse
+    assert dec.device_frames == 11 and dec.host_frames == 1
+    assert dec.parse_fallbacks == 0
+    np.testing.assert_array_equal(got.reshape(-1), inter)
+    alone, adec = _mesh_decode(data, None, True)
+    assert adec._device_parse
+    np.testing.assert_array_equal(got, alone)
+    with JaxDecoder(io.BytesIO(data), batch_frames=4, device_parse=True,
+                    mesh=jax_batch_mesh(jax.devices("cpu"))) as jdec:
+        assert not jdec._device_parse
+        want = np.asarray(jdec.read_all_device(), dtype=np.int64)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mesh", [None, ["cpu", "cpu"]])
+def test_variable_block_stream_with_device_parse_decodes_on_the_host(mesh):
+    """A variable-block-size stream with ``device_parse=True`` keeps the
+    host parse, with a mesh or without: its PCM is the manifest's."""
+    name = "variable-blocksize.flac"
+    with open(os.path.join(CORPUS, name), "rb") as fp:
+        data = fp.read()
+    got, dec = _mesh_decode(data, mesh, True)
+    assert not dec._device_parse and dec.device_frames == 0
+    flat = got.reshape(-1)
+    assert len(flat) == MANIFEST[name]["total_samples"]
+    assert hashlib.md5(flat.astype("<i8").tobytes()).hexdigest() \
+        == MANIFEST[name]["pcm_md5"]
+
+
 def test_batch_decoder_refuses_missing_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

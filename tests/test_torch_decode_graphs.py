@@ -27,6 +27,7 @@ import inspect
 import io
 import textwrap
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -288,34 +289,81 @@ class _FakeCUDAGraph:
         self.replays += 1
 
 
+class _FakeMemPool:
+    """Stands in for ``torch.cuda.MemPool``: an id pair of its own."""
+
+    ids = iter(range(1, 10 ** 6))
+
+    def __init__(self, pools):
+        self.id = (0, next(self.ids))
+        pools[self.id] = self
+
+
+class _FakeTorch:
+    """``torch`` with ``cuda`` replaced."""
+
+    def __init__(self, cuda):
+        self.cuda = cuda
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+class _PoolAllocations(TorchDispatchMode):
+    """Records each tensor an op makes on this thread into ``made``."""
+
+    def __init__(self, made: list):
+        super().__init__()
+        self.made = made
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.made.extend(t for t in torch.utils._pytree.tree_leaves(out)
+                         if isinstance(t, torch.Tensor))
+        return out
+
+
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """``graphs.CapturedGraph`` on the CPU: the capture runs the function
-    eagerly, ``memory_reserved`` grows by 5 a call, each
-    ``graph_pool_handle()`` is a new pair and ``captures`` records the
-    ``pool`` of each capture, in order."""
+    eagerly, ``memory_reserved`` grows by 5 a call, each ``MemPool`` has
+    an id of its own, ``captures`` records the pool id of each capture,
+    in order, and ``warm_ups`` each ``use_mem_pool`` block as (pool id,
+    the tensors its thread's ops made inside it), as the real
+    ``use_mem_pool`` routes only its own thread's allocations.  Only
+    the graphs hold their pools."""
     reserved = iter(range(0, 10 ** 6, 5))
-    handles = iter(range(1, 10 ** 6))
-    captures = []
+    captures, warm_ups, pools = [], [], weakref.WeakValueDictionary()
     null = contextlib.nullcontext
 
     def graph(g, stream=None, pool=None):
+        assert pool in pools
         captures.append(pool)
         return null()
+
+    @contextlib.contextmanager
+    def use_mem_pool(pool, device=None):
+        made = []
+        warm_ups.append((pool.id, made))
+        with _PoolAllocations(made):
+            yield
 
     cuda = types.SimpleNamespace(
         device=lambda d: null(), stream=lambda s: null(),
         synchronize=lambda d=None: None, empty_cache=lambda: None,
         memory_reserved=lambda d=None: next(reserved),
+        max_memory_reserved=lambda d=None: 10 ** 7,
+        reset_peak_memory_stats=lambda d=None: None,
         CUDAGraph=_FakeCUDAGraph, graph=graph,
-        graph_pool_handle=lambda: (0, next(handles)))
-    monkeypatch.setattr(graphs, "torch", types.SimpleNamespace(cuda=cuda))
+        MemPool=lambda: _FakeMemPool(pools), use_mem_pool=use_mem_pool)
+    monkeypatch.setattr(graphs, "torch", _FakeTorch(cuda))
     monkeypatch.setattr(graphs, "_POOLS", {})
     monkeypatch.setattr(graphs, "POOL_BYTES", {})
+    monkeypatch.setattr(graphs, "_PEAKS", {})
     monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(
         kernels.LAUNCHES, 0))
     return types.SimpleNamespace(device=torch.device("cpu"), cuda_stream=3,
-                                 captures=captures)
+                                 captures=captures, warm_ups=warm_ups)
 
 
 def test_launch_tally_counts_once_per_replay(fake_cuda):
@@ -379,7 +427,7 @@ def test_graphs_of_one_stream_capture_into_one_pool(fake_cuda):
     the sum of its captures' growth."""
     made = _captures_on(fake_cuda)
     handle = graphs.stream_pool(fake_cuda)
-    assert fake_cuda.captures == [handle] * 3
+    assert fake_cuda.captures == [handle.id] * 3
     assert [g.pool for g in made] == [handle] * 3
     assert graphs.POOL_BYTES == {(fake_cuda.device, 3): 3 * 5}
     assert graphs.stream_pool(fake_cuda) == handle
@@ -404,16 +452,77 @@ def test_other_streams_and_devices_get_other_pools(fake_cuda, other):
 
 
 def test_a_stream_whose_graphs_are_gone_gets_a_new_pool(fake_cuda):
-    """Once every graph of a stream has been dropped, the next capture
-    there starts a new pool (the old one is released when its memory is
-    free), and its total starts again."""
+    """Once every graph of a stream has been dropped, its pool and its
+    total go, and the next capture there starts a new pool (the old one
+    is released when its memory is free)."""
     made = _captures_on(fake_cuda)
-    handle = made[0].pool
+    handle = made[0].pool.id
     del made
+    assert graphs.POOL_BYTES == {}
     again = _captures_on(fake_cuda)
     assert {g.pool for g in again} == {graphs.stream_pool(fake_cuda)}
-    assert again[0].pool != handle
+    assert again[0].pool.id != handle
     assert graphs.POOL_BYTES == {(fake_cuda.device, 3): 15}
+
+
+def _in(t, tensors) -> bool:
+    return any(t is u for u in tensors)
+
+
+def test_warm_ups_allocate_inside_their_streams_pool(fake_cuda):
+    """Each graph's warm-up, plan, parse or reconstruct, runs inside its
+    stream's pool, which its capture then uses; ``make_input()`` runs
+    outside it; a second stream warms up in a pool of its own."""
+    second = types.SimpleNamespace(device=fake_cuda.device, cuda_stream=4)
+    made = _captures_on(fake_cuda) + _captures_on(second)
+    pools = [graphs.stream_pool(fake_cuda)] * 3 \
+        + [graphs.stream_pool(second)] * 3
+    assert pools[0] is not pools[3]
+    assert [p for p, _ in fake_cuda.warm_ups] == [p.id for p in pools]
+    assert fake_cuda.captures == [p.id for p in pools]
+    assert [g.pool for g in made] == pools
+    for g, (_, inside) in zip(made, fake_cuda.warm_ups):
+        assert inside, "the warm-up made no tensor inside the pool"
+        assert not _in(g.input, inside)
+
+
+def test_cached_constants_first_built_in_a_warm_up_are_outside_the_pool(
+        fake_cuda, monkeypatch):
+    """``device_constant``, ``window_array`` and ``_crc_planes``, first
+    built during a warm-up, go through ``graphs.outside_pool`` while the
+    warm-up's pool is routed, and no tensor they return was made inside
+    the pool."""
+    from flac_codec_tpu_torch.ops import common, framepack, lpc
+
+    built = {}
+    for mod in (common, lpc, framepack):
+        def spy(build, mod=mod):
+            routed = getattr(graphs._ROUTED, "pool", None)
+            t = graphs.outside_pool(build)
+            built.setdefault(mod.__name__, []).append((routed, t))
+            return t
+        monkeypatch.setattr(mod, "outside_pool", spy)
+    for cache in (common.device_constant, lpc.window_array,
+                  framepack._crc_planes):
+        cache.cache_clear()
+    made = _captures_on(fake_cuda)
+    assert sorted(built) == sorted(m.__name__
+                                   for m in (common, lpc, framepack))
+    inside = [t for _, ts in fake_cuda.warm_ups for t in ts]
+    pool = graphs.stream_pool(fake_cuda)
+    for name, calls in built.items():
+        for routed, t in calls:
+            assert routed is pool, name
+            assert isinstance(t, torch.Tensor) and not _in(t, inside), name
+    assert getattr(graphs._ROUTED, "pool", None) is None
+    assert all(g.output is not None for g in made)
+
+
+def test_outside_pool_runs_on_the_callers_thread_outside_a_warm_up():
+    """Outside a warm-up a build runs where it is called."""
+    import threading
+
+    assert graphs.outside_pool(threading.get_ident) == threading.get_ident()
 
 
 def test_decode_graph_keys_like_jit_plus_stream(monkeypatch):

@@ -9,11 +9,12 @@ run on one card: five formats (mono and stereo 16-bit 44.1 kHz, stereo
 24-bit 96 kHz, 6-channel 24-bit 48 kHz, 8-channel 24-bit 96 kHz at block
 16384) encoded in f64 and f32 at 256-frame batches and decoded through
 both parse paths, then the first format encoded again.  Prints
-``memory_reserved`` after each format, its growth over the run, and the
-largest single capture's pool (the 8-channel configuration captured
-alone on a fresh stream); the checks of the phase hold (bytes, PCM), but
-the growth is reported, not held to a limit.  Ends with one JSON line,
-and exits non-zero without a GPU.
+``memory_reserved`` after each format, its growth over the run and its
+peak, and the largest single capture's pool (the 8-channel configuration
+captured alone on a fresh stream) with that capture's peak ("not kept"
+for a checkout whose graphs do not measure it); the checks of the phase
+hold (bytes, PCM), but the growth and the peak are reported, not held
+to a limit.  Ends with one JSON line, and exits non-zero without a GPU.
 """
 
 from __future__ import annotations
