@@ -116,7 +116,18 @@ non-zero without one, and outside a checkout).  Phases:
    which turns the device parse off as the JAX package does; the PCM
    must equal the unsharded device-parse decode's (and the input), K3
    must launch and K4 not, and every device batch must be a reconstruct
-   replay per shard holding a real frame.
+   replay per shard holding a real frame;
+22. the JAX package's call shapes, each counted: the 120 s clip through
+   the positional ``BatchEncoder(..., 256, None, "f64")`` on the default
+   ``cuda`` (the bytes of phase 3; K1, K2 and the autocorrelation
+   launched) and back through ``BatchDecoder(f, 256, None, True)`` (PCM
+   == the input; K4 and K3 launched); ``wav2flac --tpu`` and ``flac2wav
+   --tpu -j 4`` in process on a 16-bit and a 24-bit file (the host
+   encoder's bytes; the input WAVs back); ``flac_codec_tpu_torch.
+   FlacSampleWriter`` resolved; the native flavor that loaded (an
+   x86-64-v3 host must load the v3 build unless ``FLAC_TPU_PORTABLE_SO``
+   is set) and ``parse_frames_raw`` over the 120 s stream in both
+   flavors, interleaved (median of 7, the same arrays).
 
 Every encoder and decoder here runs with CUDA graphs on (the default)
 but those of phases 17 and 18 that ask for ``graphs=False``; every graph
@@ -1819,6 +1830,190 @@ def check_mesh_device_parse(dev, data16, pcm16) -> None:
     report_captures("mesh with device_parse=True", before)
 
 
+def check_jax_call_shapes(dev, root, pcm16, pcm24, data16) -> None:
+    """Phase 22: the JAX package's call shapes on the card, each run
+    counted: the positional ``BatchEncoder(..., 256, None, "f64")`` (the
+    bytes of phase 3; K1, K2 and the autocorrelation launched, every batch
+    a replay), the positional ``BatchDecoder(f, 256, None, True)`` (PCM ==
+    the input; K4 and K3 launched, only the tail batch handed to the host
+    parse), ``wav2flac --tpu`` and ``flac2wav --tpu -j 4`` in process on
+    two files (the host encoder's bytes, and the input WAVs back), and
+    ``flac_codec_tpu_torch.FlacSampleWriter`` resolved."""
+    import shutil
+
+    import torch
+
+    import flac_codec_tpu_torch
+    from flac_codec_tpu_torch import cli, kernels
+    from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+    from flac_codec_tpu_torch.parallel.batch import BatchEncoder
+    from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
+    from flac_codec_tpu_torch import metadata as meta
+    from flac_codec_tpu_torch.utils.wav import (pcm_to_wave_bytes,
+                                                read_wave_header, write_wave)
+
+    if flac_codec_tpu_torch.FlacSampleWriter is not FlacSampleWriter:
+        raise AssertionError("flac_codec_tpu_torch.FlacSampleWriter is not "
+                             "the port's FlacSampleWriter")
+    n = len(pcm16) // 2
+    kernels.reset_launches()
+    before = graph_replays()
+    buf = io.BytesIO()
+    enc = BatchEncoder(buf, Options.best(), 44100, 16, 2, n, BATCH_FRAMES,
+                       None, "f64")
+    enc.write(pcm16)
+    enc.finalize()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if (enc.device.type, enc.mesh, enc.analysis) != ("cuda", None, "f64"):
+        raise AssertionError("positional BatchEncoder bound its arguments "
+                             f"to device {enc.device}, mesh {enc.mesh}, "
+                             f"analysis {enc.analysis}")
+    if buf.getvalue() != data16:
+        raise AssertionError("positional BatchEncoder(..., 256, None, "
+                             "'f64'): bytes differ from phase 3's")
+    check_launches("positional BatchEncoder", launches,
+                   ("splice_subframes", "pack_symbols", "autocorr_levinson"))
+    check_replays("positional BatchEncoder", before,
+                  batch_replays(n // 4096))
+    print("BatchEncoder(buf, Options.best(), 44100, 16, 2, n, 256, None, "
+          f"'f64') on {enc.device}: the bytes of phase 3; launches "
+          f"{launches}")
+
+    kernels.reset_launches()
+    parts = []
+    with BatchDecoder(io.BytesIO(data16), BATCH_FRAMES, None, True) as dec:
+        while (flat := dec.read_batch_interleaved()) is not None:
+            parts.append(flat)
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    pcm = torch.cat(parts)
+    if not (dec._device_parse and dec.device.type == "cuda"):
+        raise AssertionError("positional BatchDecoder(f, 256, None, True) "
+                             "did not parse on the card")
+    if pcm.device.type != "cuda" or not np.array_equal(
+            pcm.cpu().numpy().reshape(-1), pcm16):
+        raise AssertionError("positional BatchDecoder: PCM differs from "
+                             "the input")
+    if dec.parse_fallbacks != 1:
+        raise AssertionError(f"positional BatchDecoder: "
+                             f"{dec.parse_fallbacks} batches fell back to "
+                             "the host parse (want the tail's only)")
+    check_launches("positional BatchDecoder", launches,
+                   ("parse_frame_bodies", "predict_lpc"))
+    print(f"BatchDecoder(f, 256, None, True) on {dec.device}: lossless, "
+          f"{dec.device_frames} device frames, {dec.parse_fallbacks} "
+          f"fallback batch (the tail); launches {launches}")
+
+    work = os.path.join(root, "flac_codec_tpu_torch", "build", "chip_smoke",
+                        "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "out"))
+    clips = {"a": (pcm16[:2 * 10 * 44100], 44100, 16),
+             "b": (pcm24[:2 * 5 * 96000], 96000, 24)}
+    for name, (inter, rate, bps) in clips.items():
+        with open(os.path.join(work, f"{name}.wav"), "wb") as f:
+            write_wave(f, rate, 2, bps, len(inter) // 2)
+            f.write(pcm_to_wave_bytes(inter, bps))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        kernels.reset_launches()
+        for name in clips:
+            if cli.main(["wav2flac", "--tpu", f"{name}.wav",
+                         f"{name}.flac"]) != 0:
+                raise AssertionError(f"wav2flac --tpu {name}.wav failed")
+        torch.cuda.synchronize()
+        enc_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        if cli.main(["flac2wav", "--tpu", "-j", "4", "a.flac", "b.flac",
+                     "-o", "out"]) != 0:
+            raise AssertionError("flac2wav --tpu -j 4 failed")
+        torch.cuda.synchronize()
+        dec_launches = dict(kernels.LAUNCHES)
+        for name, (inter, rate, bps) in clips.items():
+            # the host encoder with wav2flac's options (its channel mask
+            # tag for an EXTENSIBLE header), as the JAX tool runs it
+            # without --tpu
+            opts = Options()
+            with open(f"{name}.wav", "rb") as f:
+                mask = read_wave_header(f).channel_mask
+            if mask is not None:
+                opts = opts.tag(meta.fields.WAVEFORMATEXTENSIBLE_CHANNEL_MASK,
+                                f"0x{mask:04x}")
+            host = io.BytesIO()
+            w = FlacSampleWriter(host, opts, rate, bps, 2,
+                                 total_samples=len(inter) // 2)
+            w.write(inter)
+            w.finalize()
+            with open(f"{name}.flac", "rb") as f:
+                if f.read() != host.getvalue():
+                    raise AssertionError(f"wav2flac --tpu {name}.wav: bytes "
+                                         "differ from FlacSampleWriter's")
+            with open(f"{name}.wav", "rb") as f, \
+                    open(os.path.join("out", f"{name}.wav"), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"flac2wav --tpu -j 4 {name}.flac: "
+                                         "the WAV differs from the input")
+    finally:
+        os.chdir(cwd)
+    check_launches("wav2flac --tpu", enc_launches,
+                   ("splice_subframes", "pack_symbols", "autocorr_levinson"))
+    check_launches("flac2wav --tpu -j 4", dec_launches, ("predict_lpc",))
+    print("wav2flac --tpu (16-bit 10 s, 24-bit 5 s): FlacSampleWriter's "
+          f"bytes, launches {enc_launches}; flac2wav --tpu -j 4: the input "
+          f"WAVs back, launches {dec_launches}")
+
+
+def native_flavors(data16: bytes, runs: int = 7) -> None:
+    """Phase 22: the native flavor that loaded (the v3 build must load on
+    an x86-64-v3 host unless ``FLAC_TPU_PORTABLE_SO`` is set), and
+    ``parse_frames_raw`` over the 120 s stream's whole frames in each flavor,
+    interleaved, the same arrays from both, median of ``runs`` each."""
+    from flac_codec_tpu_torch import native
+    from flac_codec_tpu_torch.decode import Decoder
+
+    v3_host = native._cpu_is_v3()
+    forced = bool(os.environ.get("FLAC_TPU_PORTABLE_SO"))
+    print(f"native flavor loaded: {native.FLAVOR} (x86-64-v3 host: "
+          f"{v3_host}, FLAC_TPU_PORTABLE_SO set: {forced})")
+    if native.V3_ERROR:
+        print("  v3 build error: " + native.V3_ERROR.splitlines()[0])
+    if v3_host and not forced and native.FLAVOR != "v3":
+        raise AssertionError("an x86-64-v3 host loaded the "
+                             f"{native.FLAVOR} native engine")
+    flavors = ("portable", "v3") if v3_host else ("portable",)
+    libs = {f: native.open_flavor(f) for f in flavors}
+    dec = Decoder(io.BytesIO(data16))
+    si = dec.streaminfo
+    frames = dec.total_samples // si.maximum_block_size   # whole frames
+    args = (dec.r.np_view(), dec.r.pos, frames, si.sample_rate, si.channels,
+            si.bits_per_sample, si.maximum_block_size, dec.total_samples)
+    secs, first = {f: [] for f in flavors}, {}
+    for _ in range(runs):
+        for f in flavors:
+            t = time.perf_counter()
+            raw = libs[f].parse_frames_raw(*args)
+            secs[f].append((time.perf_counter() - t) * 1e3)
+            first.setdefault(f, raw)
+    if first["portable"]["n"] != frames:
+        raise AssertionError(f"parse_frames_raw parsed "
+                             f"{first['portable']['n']} of {frames} frames")
+    for f in flavors[1:]:
+        for k, v in first["portable"].items():
+            if not np.array_equal(first[f][k], v):
+                raise AssertionError(f"parse_frames_raw: the {f} flavor's "
+                                     f"{k} differs from the portable one's")
+    print(f"parse_frames_raw, 120 s 16-bit stream ({frames} whole frames), "
+          f"interleaved, median of {runs}: " + "; ".join(
+              f"{f} {statistics.median(t):.3f} ms (runs "
+              f"{', '.join(f'{x:.3f}' for x in t)})"
+              for f, t in secs.items())
+          + (", the same arrays" if len(flavors) > 1 else
+             "; v3 not measured (the host is not x86-64-v3)")
+          + f"; host CPU on the card's machine, {card()}")
+
+
 def graph_replays() -> dict:
     """Each captured plan graph's replays so far, by key."""
     from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
@@ -2493,6 +2688,10 @@ def main() -> int:
 
     # ---- 21. a mesh with the device parse asked for ----
     check_mesh_device_parse(dev, data16, pcm16)
+
+    # ---- 22. the JAX call shapes on the card, and the native flavors ----
+    check_jax_call_shapes(dev, root, pcm16, pcm24, data16)
+    native_flavors(data16)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

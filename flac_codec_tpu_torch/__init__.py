@@ -18,6 +18,39 @@ Layout mirrors the JAX package so a reader finds each counterpart:
 ``cli/`` (``wav2flac``, ``flac2wav``) and ``convert.py`` (plan trees
 between the two).  ``graphs.py`` is the counterpart of ``jax.jit``: the
 CUDA graph capture that the encoder and the decoder replay per batch.
+
+The public surface is the JAX package's: ``errors``, ``FlacError`` and,
+loaded at first use, the readers, the writers, ``verify``, ``Options``,
+``generate_seektable``, ``BlockList`` and ``Streaminfo``.
 """
 
+from . import errors  # noqa: F401
+from .errors import FlacError  # noqa: F401
+
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # The JAX package's lazy exports, name for name, each resolved to the
+    # port's own object; importing the package builds nothing.
+    import importlib
+
+    api = {
+        "FlacByteReader": ".decode",
+        "FlacSampleReader": ".decode",
+        "FlacChannelReader": ".decode",
+        "FlacStreamReader": ".decode",
+        "verify": ".decode",
+        "FlacByteWriter": ".encode",
+        "FlacSampleWriter": ".encode",
+        "FlacChannelWriter": ".encode",
+        "FlacStreamWriter": ".encode",
+        "Options": ".encode",
+        "generate_seektable": ".encode",
+        "BlockList": ".metadata",
+        "Streaminfo": ".metadata",
+    }
+    if name in api:
+        mod = importlib.import_module(api[name], __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,10 +2,12 @@
 
 The port's counterpart of ``python -m flac_codec_tpu.cli wav2flac --tpu``:
 it always encodes through ``flac_codec_tpu_torch.parallel.batch.
-BatchEncoder`` on ``--device`` (default ``cuda``).  ``build_options`` is a
-copy of the JAX package's, so presets and flags mean the same.
+BatchEncoder`` on ``--device`` (default ``cuda``), and takes the JAX
+tool's flags (``add_common_args``; ``--tpu`` is accepted and changes
+nothing).  ``build_options`` is a copy of the JAX package's, so presets
+and flags mean the same.  ``--batch-frames`` defaults to 256, not 64.
 
-    python -m flac_codec_tpu_torch.cli wav2flac --best in.wav out.flac
+    python -m flac_codec_tpu_torch.cli wav2flac [--tpu] --best in.wav out.flac
 """
 
 from __future__ import annotations
@@ -27,14 +29,18 @@ def build_options(args) -> Options:
     return opts
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="wav2flac")
-    p.add_argument("input")
-    p.add_argument("output")
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    """The JAX package's flags, plus the port's ``--device`` and
+    ``--analysis``.  ``--tpu`` is accepted and changes nothing: the port
+    always encodes through ``BatchEncoder`` on ``--device``.
+    ``--batch-frames`` defaults to 256 (the JAX package's to 64)."""
     p.add_argument("--fast", action="store_true", help="fast preset")
     p.add_argument("--best", action="store_true", help="max compression (-8)")
     p.add_argument("--block-size", type=int, default=None)
     p.add_argument("--no-padding", action="store_true")
+    p.add_argument("--tpu", action="store_true",
+                   help="accepted for the JAX package's command lines; the "
+                        "port always encodes on --device")
     p.add_argument("--batch-frames", type=int, default=256)
     p.add_argument("--device", default="cuda",
                    help="torch device of the encode planner (default cuda)")
@@ -42,6 +48,13 @@ def main(argv=None) -> int:
                    default="auto",
                    help="LPC analysis precision; f64 (and auto) give bytes "
                         "identical to the host encoder")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="wav2flac")
+    p.add_argument("input")
+    p.add_argument("output")
+    add_common_args(p)
     args = p.parse_args(argv)
 
     from ..parallel.batch import BatchEncoder

@@ -6,6 +6,16 @@ of the source and flags, so a checkout builds from its own files and an
 edited source rebuilds.  The port needs the engine (frame parse, bulk
 decode, frame assembly): :func:`load` raises, with the compiler's output,
 when it cannot build or load it.  It never returns ``None``.
+
+Flavors, on the JAX package's rule: :func:`load` always builds the
+portable library first.  On an x86-64-v3 host (:func:`_cpu_is_v3`) with
+``FLAC_TPU_PORTABLE_SO`` unset it then builds and loads a
+``-march=x86-64-v3`` flavor (``lzcnt`` and ``shlx`` in the Rice chain),
+and loads the portable library, with a ``RuntimeWarning``, when that
+build fails.  ``FLAVOR`` names the flavor that loaded and ``V3_ERROR``
+holds the failed v3 build's message.  No flavor changes a byte or a
+sample: the engine has no floating point, and its SIMD paths dispatch on
+``__builtin_cpu_supports``.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import warnings
 
 import numpy as np
 
@@ -25,9 +36,15 @@ BUILD = os.path.join(os.path.dirname(_HERE), "build", "native")
 # portable -O3 on purpose: the SIMD fast paths carry per-function target
 # attributes with runtime cpuid dispatch
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+# added to GXX_FLAGS for the "v3" flavor
+V3_FLAGS = ("-march=x86-64-v3",)
 
 _lock = threading.Lock()
 _lib = None
+# the flavor load() loaded ("v3" or "portable"), and the v3 build's error
+# when it failed and the portable library loaded instead
+FLAVOR = None
+V3_ERROR = None
 
 
 class Native:
@@ -402,11 +419,11 @@ class Native:
         return (None if overflow else res)
 
 
-def _build() -> str:
-    """Compile flacnat.cpp (once per source hash) and return the library
-    path.  Concurrent processes serialize on a lock file; a failed build
-    raises with the compiler's output."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+def _build(flags: tuple) -> str:
+    """Compile flacnat.cpp with ``flags`` (once per source and flags hash)
+    and return the library path.  Concurrent processes serialize on a lock
+    file; a failed build raises with the compiler's output."""
+    h = hashlib.sha256(" ".join(flags).encode())
     with open(_SRC, "rb") as f:
         h.update(f.read())
     out_dir = os.path.join(BUILD, h.hexdigest()[:16])
@@ -419,7 +436,7 @@ def _build() -> str:
         if os.path.exists(so):
             return so
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = ["g++", *GXX_FLAGS, _SRC, "-o", tmp]
+        cmd = ["g++", *flags, _SRC, "-o", tmp]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as e:
@@ -433,15 +450,54 @@ def _build() -> str:
     return so
 
 
+def _open(so: str) -> Native:
+    try:
+        return Native(ctypes.CDLL(so))
+    except OSError as e:
+        raise RuntimeError(f"loading the native engine {so} failed: "
+                           f"{e}") from e
+
+
+def open_flavor(flavor: str) -> Native:
+    """Build (if needed) and open one flavor, ``"portable"`` or ``"v3"``,
+    apart from the library :func:`load` chose; for holding the two
+    flavors against each other in one process.  Raises if it cannot."""
+    if flavor not in ("portable", "v3"):
+        raise ValueError(f"unknown native flavor {flavor!r}")
+    return _open(_build(GXX_FLAGS + (V3_FLAGS if flavor == "v3" else ())))
+
+
 def load() -> Native:
-    """Build (if needed) and load the native library; raises if it cannot."""
-    global _lib
+    """Build (if needed) and load the native library; raises if the
+    portable build fails.  Loads the v3 flavor where the module docstring
+    says, and the portable library when the v3 build fails."""
+    global _lib, FLAVOR, V3_ERROR
     with _lock:
         if _lib is None:
-            so = _build()
-            try:
-                _lib = Native(ctypes.CDLL(so))
-            except OSError as e:
-                raise RuntimeError(f"loading the native engine {so} failed: "
-                                   f"{e}") from e
+            so, flavor, V3_ERROR = _build(GXX_FLAGS), "portable", None
+            if _cpu_is_v3() and not os.environ.get("FLAC_TPU_PORTABLE_SO"):
+                try:
+                    so, flavor = _build(GXX_FLAGS + V3_FLAGS), "v3"
+                except RuntimeError as e:
+                    V3_ERROR = str(e)
+                    warnings.warn("the x86-64-v3 native build failed; "
+                                  f"loading the portable one: {e}",
+                                  RuntimeWarning, stacklevel=2)
+            _lib = _open(so)
+            FLAVOR = flavor
         return _lib
+
+
+def _cpu_is_v3() -> bool:
+    """True iff this CPU meets the x86-64-v3 feature level (the flags the
+    v3 build may emit anywhere, not just in dispatch-guarded functions)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    flags = set(line.split(":", 1)[1].split())
+                    return {"avx2", "bmi1", "bmi2", "fma", "movbe",
+                            "abm", "f16c"} <= flags
+    except OSError:
+        pass
+    return False

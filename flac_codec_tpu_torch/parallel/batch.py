@@ -240,7 +240,9 @@ class BatchEncoder:
     assembly.
 
     Mirrors ``FlacSampleWriter``'s output, but plans ``batch_frames``
-    frames at once on ``device``.  ``pack_budget`` (residual bits a
+    frames at once on ``device``.  The positional parameters are the JAX
+    package's; ``device`` and ``graphs`` are keyword-only.
+    ``pack_budget`` (residual bits a
     sample; None means bits_per_sample + 2, which never overflows, and 0
     no device packing) and ``frame_pack`` (None means on whenever
     ``pack_budget`` is set) choose the mode, with the JAX package's
@@ -259,9 +261,9 @@ class BatchEncoder:
     def __init__(self, fp_or_path, options: Options, sample_rate: int,
                  bits_per_sample: int, channels: int,
                  total_samples: Optional[int] = None,
-                 batch_frames: int = 64, analysis: str = "auto",
-                 device="cuda", pack_budget: Optional[int] = None,
-                 frame_pack: Optional[bool] = None, mesh=None,
+                 batch_frames: int = 64, mesh=None, analysis: str = "auto",
+                 pack_budget: Optional[int] = None,
+                 frame_pack: Optional[bool] = None, *, device="cuda",
                  graphs: bool = True):
         self.mesh = None if mesh is None else batch_mesh(mesh)
         if self.mesh is None:

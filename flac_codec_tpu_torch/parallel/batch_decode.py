@@ -197,7 +197,10 @@ class BatchDecoder:
     ``device="cuda"`` without CUDA raises, and so does a native engine
     that does not build.  ``device="cpu"`` runs the same pipeline with the
     kernels' plain versions.  Decoded batches are int32 tensors on
-    ``device``.  ``device_parse`` parses the frame bodies on the device;
+    ``device``.  The positional parameters are the JAX package's;
+    ``device`` and ``graphs`` are keyword-only.  ``device_parse`` parses
+    the frame bodies on the device (None, the default, means off: the
+    port does not read ``FLAC_TPU_DEVICE_PARSE``);
     ``mesh`` (``parallel.mesh.batch_mesh``) shards the reconstruction over
     its devices and leaves the PCM on the first, and ``device`` is then
     not consulted (module docstring).  On CUDA each batch's parse and
@@ -207,8 +210,9 @@ class BatchDecoder:
     runs eagerly).  A failed capture or replay raises.
     """
 
-    def __init__(self, fp_or_path, batch_frames: int = 256, device="cuda",
-                 device_parse: bool = False, mesh=None, graphs: bool = True):
+    def __init__(self, fp_or_path, batch_frames: int = 256, mesh=None,
+                 device_parse: bool | None = None, *, device="cuda",
+                 graphs: bool = True):
         self.mesh = None if mesh is None else batch_mesh(mesh)
         if self.mesh is not None:
             self.device, devices = self.mesh[0], self.mesh
@@ -241,7 +245,7 @@ class BatchDecoder:
         self.block_size = si.maximum_block_size
         self._fixed_blocks = (si.minimum_block_size == si.maximum_block_size
                               and si.maximum_block_size > 0)
-        self._device_parse = (device_parse and self._fixed_blocks
+        self._device_parse = (bool(device_parse) and self._fixed_blocks
                               and si.bits_per_sample <= 24
                               and self.mesh is None)
         # the pinned upload buffer on CUDA, and the events of its last

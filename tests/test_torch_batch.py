@@ -221,7 +221,8 @@ def test_port_sources_never_import_jax():
 def test_port_runs_with_jax_blocked():
     """In a process where jax, jaxlib and every module of the JAX package
     fail to import: import every module of the port, encode with the
-    port's BatchEncoder and its own FlacSampleWriter, and decode the
+    port's BatchEncoder and its own FlacSampleWriter (each also resolved
+    through the package's exports), and decode the
     result with the port's BatchDecoder, with the host parse and with the
     device parse."""
     code = """
@@ -250,6 +251,8 @@ for name in ("jax", "flac_codec_tpu", "flac_codec_tpu.encode"):
 from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
 from flac_codec_tpu_torch.parallel.batch import BatchEncoder
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
+assert flac_codec_tpu_torch.FlacSampleWriter is FlacSampleWriter
+assert flac_codec_tpu_torch.parallel.BatchEncoder is BatchEncoder
 x = (np.arange(2 * 700) % 97 * 50 - 2400).astype(np.int32)
 outs = []
 for cls, kw in ((FlacSampleWriter, {}), (BatchEncoder, {"device": "cpu"})):

@@ -250,6 +250,35 @@ def test_flac2wav_device_parse_matches_jax_device_parse(tmp_path,
     assert parses["jax"] >= 1 and parses["port"] >= 1
 
 
+# the JAX package's device command lines: (tool, arguments of both,
+# extra arguments of the port, a file the run writes)
+JAX_FLAGS = {
+    "wav2flac-tpu": ("wav2flac", ["--tpu", "a.wav", "out.flac"],
+                     ["--device", "cpu"], "out.flac"),
+    "wav2flac-tpu-best": ("wav2flac", ["--tpu", "--best", "--block-size",
+                                       "1024", "a.wav", "out.flac"],
+                          ["--device", "cpu"], "out.flac"),
+    "flac2wav-tpu-jobs": ("flac2wav", ["--tpu", "-j", "2", "a.flac",
+                                       "b.flac"], ["--device", "cpu"],
+                          "b.wav"),
+    "flac2wav-jobs": ("flac2wav", ["-j", "2", "b.flac", "cued.flac"],
+                      ["--device", "cpu"], "cued.wav"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JAX_FLAGS))
+def test_device_tool_takes_jax_flags(case, tmp_path, monkeypatch):
+    """``wav2flac --tpu`` and ``flac2wav --tpu -j 2`` (and ``-j 2`` alone,
+    which the JAX tool runs in a worker pool): the port accepts the JAX
+    command line, adds only ``--device cpu``, and writes the JAX tool's
+    files and output."""
+    tool, args, port_extra, written = JAX_FLAGS[case]
+    rc, _, err, files = _compare(tmp_path, monkeypatch, tool, args,
+                                 port_extra, sort_lines=True)
+    assert rc == 0, err
+    assert written in files
+
+
 def test_cli_table_and_unknown_tool(capsys):
     assert tcli.TOOLS == jcli.TOOLS
     assert tcli.main(["no-such-tool"]) == 2

@@ -1,6 +1,7 @@
 """Encode and decode MB/s of PCM for any checkout, in a fresh process.
 
     python tools/bench_end_to_end.py [--root DIR] [--label NAME] [--runs 5]
+        [--stages]
 
 Imports ``flac_codec_tpu_torch`` from the checkout at ``--root``
 (default: this one) and ``chip_smoke.py`` from this one, so that two
@@ -11,8 +12,15 @@ decode build every graph, then ``--runs`` timed runs each of the f64
 frame-packed encode (``BatchEncoder``, preset -8, 256-frame batches) and
 of the decode of its stream with the host parse and with the device
 parse (``BatchDecoder``, PCM left on the card), synchronised.  Prints
-each run and ends with one JSON line of the medians, in MB/s of PCM,
-with the card's name and power limit; exits non-zero without a GPU.
+each run and ends with one JSON line of the medians, in MB/s of PCM, and
+the native engine's flavor, with the card's name and power limit; exits
+non-zero without a GPU.  ``--stages`` adds the stage times of each
+case's median run (``FLAC_TPU_TRACE``, host clock; ``decode.parse`` is
+the native engine's share of the host-parse decode); the trace writes a
+file line per stage and batch, which slows every case, so compare
+traced runs only with traced runs.  ``FLAC_TPU_PORTABLE_SO=1`` loads the
+portable native build on an x86-64-v3 host: run it against unset, in
+turns, to time the two flavors.
 """
 
 from __future__ import annotations
@@ -35,8 +43,18 @@ def main() -> int:
                     help="checkout whose flac_codec_tpu_torch is measured")
     ap.add_argument("--label", default=None)
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--stages", action="store_true",
+                    help="trace and print the median run's stage times")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
+    trace_path = None
+    if args.stages:
+        # stage timings go to this file (read at the port's first import)
+        trace_path = os.path.join(HERE, "flac_codec_tpu_torch", "build",
+                                  "bench_end_to_end",
+                                  f"trace-{os.getpid()}.jsonl")
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        os.environ["FLAC_TPU_TRACE"] = trace_path
     import torch
 
     if not torch.cuda.is_available():
@@ -61,21 +79,42 @@ def main() -> int:
         "decode_device_parse": lambda: cs.decode_port(data, dev,
                                                       device_parse=True),
     }
-    out = {}
+    stage_names = {"encode_f64": cs.ENCODE_STAGES,
+                   "decode_host_parse": ("decode.parse",
+                                         "decode.reconstruct"),
+                   "decode_device_parse": ("decode.scan", "decode.upload",
+                                           "decode.parse_device",
+                                           "decode.reconstruct")}
+    out, stages = {}, {}
     for name, run in cases.items():
         run()
-        secs = []
+        runs = []
         for _ in range(args.runs):
+            if trace_path:
+                open(trace_path, "w").close()
             t = time.perf_counter()
             run()
             torch.cuda.synchronize(dev)
-            secs.append(time.perf_counter() - t)
+            runs.append((time.perf_counter() - t,
+                         cs.stage_ms(trace_path, stage_names[name])
+                         if trace_path else {}))
+        secs = [r[0] for r in runs]
         out[name] = mb / statistics.median(secs)
-        print(f"{name}: {out[name]:.2f} MB/s of PCM (median of "
-              f"{args.runs}; runs {', '.join(f'{s:.4f}' for s in secs)} s "
-              f"for {mb:.2f} MB)")
-    print(json.dumps({"label": args.label or os.path.abspath(args.root),
-                      "card": cs.card(), "mb_s": out}))
+        stages[name] = sorted(runs, key=lambda r: r[0])[len(runs) // 2][1]
+        line = (f"{name}: {out[name]:.2f} MB/s of PCM (median of "
+                f"{args.runs}; runs {', '.join(f'{s:.4f}' for s in secs)} "
+                f"s for {mb:.2f} MB")
+        if trace_path:
+            line += "; in the median run " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in stages[name].items())
+        print(line + ")")
+    result = {"label": args.label or os.path.abspath(args.root),
+              "card": cs.card(), "mb_s": out,
+              "native_flavor": getattr(native, "FLAVOR", None)}
+    if trace_path:
+        os.remove(trace_path)
+        result["stage_ms"] = stages
+    print(json.dumps(result))
     return 0
 
 
