@@ -127,7 +127,18 @@ non-zero without one, and outside a checkout).  Phases:
    FlacSampleWriter`` resolved; the native flavor that loaded (an
    x86-64-v3 host must load the v3 build unless ``FLAC_TPU_PORTABLE_SO``
    is set) and ``parse_frames_raw`` over the 120 s stream in both
-   flavors, interleaved (median of 7, the same arrays).
+   flavors, interleaved (median of 7, the same arrays);
+23. the benchmark ``bench_torch.py`` run in process (``bench_torch.run``)
+   at a chain of ``BENCH_CHAIN`` replays: every key finite and positive,
+   no section failed, skipped or turned off, the headline line first and
+   the last line with its value; the headline and f64 sections captured
+   no graph (they replay those the encoders of phases 4 and 3 captured);
+   ``kernels.LAUNCHES``, zeroed before the run, counted K1 and K2 in
+   every encode section, the autocorrelation in the f64 section and the
+   stream, K3 in the decode step and both pipelines and K4 in the
+   device-parse pipeline; the 24 s decode stream, made by the f64
+   ``BatchEncoder``, is the tracked ``.bench_cache/bench_p8_24s_seed3.
+   flac`` byte for byte (so ``compression_ratio_preset8`` is 0.6676).
 
 Every encoder and decoder here runs with CUDA graphs on (the default)
 but those of phases 17 and 18 that ask for ``graphs=False``; every graph
@@ -2460,6 +2471,87 @@ def fresh_stream(dev):
     raise RuntimeError("no stream without graphs")
 
 
+# phase 23: the benchmark's chain of back-to-back replays (its default is
+# 48), and the kernels each of its sections must launch
+BENCH_CHAIN = 8
+ENCODE_KERNELS = ("splice_subframes", "pack_symbols")
+BENCH_LAUNCHES = {
+    "headline": ENCODE_KERNELS, "dispatch": ENCODE_KERNELS,
+    "f64": ENCODE_KERNELS + ("autocorr_levinson",),
+    "24bit": ENCODE_KERNELS,
+    "stream": ENCODE_KERNELS + ("autocorr_levinson",),
+    "decode_device_step": ("predict_lpc",),
+    "decode_pipeline": ("predict_lpc",),
+    "decode_pipeline_device_parse": ("parse_frame_bodies", "predict_lpc"),
+    "end_to_end": ENCODE_KERNELS, "assemble": ENCODE_KERNELS}
+
+
+def check_bench(dev, root) -> None:
+    """Phase 23: ``bench_torch.py``'s sections on the card, in process
+    (module docstring)."""
+    import math
+
+    import bench_torch
+    from flac_codec_tpu_torch import kernels
+
+    def positive(v) -> bool:
+        if isinstance(v, dict):
+            return bool(v) and all(positive(x) for x in v.values())
+        return isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+
+    cfg = bench_torch.Config(chain=BENCH_CHAIN, cache_dir=None)
+    lines, ctx = [], {}
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out, rc = bench_torch.run(dev, cfg, time.time() + 900,
+                              emit=lambda o: lines.append(dict(o)), ctx=ctx)
+    launches = dict(kernels.LAUNCHES)
+    secs = time.perf_counter() - t
+    print(f"bench_torch.run, chain {BENCH_CHAIN}: {secs:.1f} s, final "
+          f"line {json.dumps(out)}")
+    if rc or out["errors"] or out["skipped"] or out["disabled"]:
+        raise AssertionError(f"bench_torch: exit code {rc}, errors "
+                             f"{out['errors']}, skipped {out['skipped']}, "
+                             f"disabled {out['disabled']}")
+    if lines[0].get("metric") != bench_torch.METRIC or "errors" in lines[0] \
+            or lines[-1]["value"] != lines[0]["value"]:
+        raise AssertionError("bench_torch: the first line is not the "
+                             "headline, or the last has another value")
+    bad = [k for k in bench_torch.KEYS if not positive(out.get(k))]
+    if bad:
+        raise AssertionError(f"bench_torch: keys not finite and positive: "
+                             f"{bad}")
+    if out["captures"]["headline"] or out["captures"]["f64"]:
+        raise AssertionError(f"bench_torch captured graphs in its encode "
+                             f"steps ({out['captures']}): it times another "
+                             "graph than the encoders of phases 3-4")
+    want = dict(BENCH_LAUNCHES)
+    if not out["decode_device_step_mode"].startswith("lpc"):
+        want["decode_device_step"] = ()  # the FIXED cumsum, no kernel
+    missing = [(s, k) for s, names in want.items() for k in names
+               if out["launches"][s].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"bench_torch: kernels not launched: {missing}")
+    counted = {k: sum(n.get(k, 0) for n in out["launches"].values())
+               for k in launches}
+    if counted != launches:
+        raise AssertionError(f"bench_torch: sections counted {counted}, "
+                             f"kernels.LAUNCHES {launches}")
+    with open(os.path.join(root, ".bench_cache",
+                           "bench_p8_24s_seed3.flac"), "rb") as f:
+        tracked = f.read()
+    if ctx["stream"] != tracked or out["compression_ratio_preset8"] != 0.6676:
+        raise AssertionError(
+            f"bench_torch: the {len(ctx['stream'])}-byte decode stream is "
+            f"not the tracked {len(tracked)}-byte one (ratio "
+            f"{out['compression_ratio_preset8']})")
+    print(f"bench_torch: {len(lines)} lines, every key positive, launches "
+          f"{launches}, captures {out['captures']}, decode stream == "
+          f".bench_cache/bench_p8_24s_seed3.flac, ratio "
+          f"{out['compression_ratio_preset8']}, pools {out['pool_mib']:.1f} "
+          f"MiB, on {card()}")
+
+
 def stage_ms(path: str, names) -> dict:
     """Sum of each named stage's ms in a FLAC_TPU_TRACE JSONL file."""
     out = dict.fromkeys(names, 0.0)
@@ -2692,6 +2784,9 @@ def main() -> int:
     # ---- 22. the JAX call shapes on the card, and the native flavors ----
     check_jax_call_shapes(dev, root, pcm16, pcm24, data16)
     native_flavors(data16)
+
+    # ---- 23. the benchmark's sections on the card, counted ----
+    check_bench(dev, root)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

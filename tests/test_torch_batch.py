@@ -185,18 +185,19 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_sources_never_import_jax():
-    """No module of the port, not chip_smoke.py, and none of the port's
-    tools (``tools/fuzz_roundtrip_torch.py``, ``tools/bench_*.py``,
-    ``tools/chain_latency.py``) imports jax, jaxlib or any module of the
-    JAX package ``flac_codec_tpu``: no import statement, relative or
-    absolute, and no ``import_module`` or ``__import__`` call, names
-    one."""
+    """No module of the port, not chip_smoke.py or bench_torch.py, and
+    none of the port's tools (``tools/fuzz_roundtrip_torch.py``,
+    ``tools/bench_*.py``, ``tools/chain_latency.py``) imports jax, jaxlib
+    or any module of the JAX package ``flac_codec_tpu``: no import
+    statement, relative or absolute, and no ``import_module`` or
+    ``__import__`` call, names one."""
     tools = ROOT / "tools"
     port_tools = ([tools / "fuzz_roundtrip_torch.py",
                    tools / "chain_latency.py"]
                   + sorted(tools.glob("bench_*.py")))
     assert len(port_tools) >= 6 and all(p.is_file() for p in port_tools)
-    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                            ROOT / "bench_torch.py"]
              + port_tools)
     assert len(files) > 40
     for path in files:
@@ -220,9 +221,9 @@ def test_port_sources_never_import_jax():
 
 def test_port_runs_with_jax_blocked():
     """In a process where jax, jaxlib and every module of the JAX package
-    fail to import: import every module of the port, encode with the
-    port's BatchEncoder and its own FlacSampleWriter (each also resolved
-    through the package's exports), and decode the
+    fail to import: import bench_torch.py and every module of the port,
+    encode with the port's BatchEncoder and its own FlacSampleWriter
+    (each also resolved through the package's exports), and decode the
     result with the port's BatchDecoder, with the host parse and with the
     device parse."""
     code = """
@@ -236,6 +237,7 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Refuse())
 import numpy as np
+import bench_torch
 import flac_codec_tpu_torch
 for m in pkgutil.walk_packages(flac_codec_tpu_torch.__path__,
                                "flac_codec_tpu_torch."):
