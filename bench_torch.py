@@ -232,29 +232,46 @@ def shard_stream(dev):
     return shard_streams(batch_mesh([dev]))[0]
 
 
-def plan_step(dev, frames: int, analysis: str, bps: int,
-              frame_pack: bool = True):
-    """The plan step ``BatchEncoder`` runs for a batch of ``frames`` whole
-    stereo frames: on the card a replay of the CUDA graph it replays
-    (``plan_graph`` with the encoder's static arguments, on its stream;
-    captured here if no encoder has captured it yet), on the CPU
-    ``encode_frames_plan``.  Returns ``(step, stream)``; ``step(x)`` takes
-    a (frames, 2, block) batch and returns the plan."""
+def encoder_plan(dev, frames: int, analysis: str, bps: int,
+                 frame_pack: bool = True, pack_budget=None):
+    """The plan ``BatchEncoder`` runs for a batch of ``frames`` whole
+    stereo frames at preset -8: ``(kw, graph,
+    stream)``, with ``kw`` the encoder's static arguments of
+    ``encode_frames_plan`` and, on the card, the CUDA graph it replays
+    (``plan_graph`` on its stream; captured here if no encoder has
+    captured it yet) and that stream.  On the CPU graph and stream are
+    None."""
     import torch
 
-    from flac_codec_tpu_torch.ops.encode_batch import (encode_frames_plan,
-                                                       plan_graph)
+    from flac_codec_tpu_torch.ops.encode_batch import plan_graph
     from flac_codec_tpu_torch.parallel.batch import BatchEncoder
 
     enc = BatchEncoder(io.BytesIO(), options(), 44100, bps, 2,
                        batch_frames=frames, analysis=analysis,
-                       frame_pack=frame_pack, device=dev)
+                       pack_budget=pack_budget, frame_pack=frame_pack,
+                       device=dev)
     kw, stream = enc._plan_kw, shard_stream(dev)
     if stream is None:
-        return (lambda x: encode_frames_plan(x, **kw)), None
+        return kw, None, None
     graph = plan_graph((frames, 2, enc._block),
                        torch.int16 if bps <= 16 else torch.int32, stream,
                        **kw)
+    return kw, graph, stream
+
+
+def plan_step(dev, frames: int, analysis: str, bps: int,
+              frame_pack: bool = True, pack_budget=None):
+    """The plan step ``BatchEncoder`` runs for a batch of ``frames`` whole
+    stereo frames (``encoder_plan``): on the card a replay of the CUDA
+    graph it replays, on the CPU ``encode_frames_plan``.  Returns
+    ``(step, stream)``; ``step(x)`` takes a (frames, 2, block) batch and
+    returns the plan."""
+    from flac_codec_tpu_torch.ops.encode_batch import encode_frames_plan
+
+    kw, graph, stream = encoder_plan(dev, frames, analysis, bps, frame_pack,
+                                     pack_budget)
+    if graph is None:
+        return (lambda x: encode_frames_plan(x, **kw)), None
     return graph.replay, stream
 
 
@@ -307,17 +324,23 @@ def encode_batches(frames: int, block: int, bps: int, n: int) -> list:
 
 
 def device_step_mbps(dev, cfg: Config, analysis: str, chain: int,
-                     bits_per_sample: int = 16, scan: bool = True) -> tuple:
+                     bits_per_sample: int = 16, scan: bool = True,
+                     frame_pack: bool = True, pack_budget=None,
+                     inputs=None) -> tuple:
     """(MB/s of PCM, ms) of the median step of ``BatchEncoder``'s plan
-    step on device-resident batches: ``window_ms`` with ``scan``, else
+    step (in the mode ``frame_pack`` and ``pack_budget`` choose, as for
+    the encoder) on device-resident batches, ``inputs`` or else
+    ``encode_batches``: ``window_ms`` with ``scan``, else
     ``dispatch_ms``."""
     import torch
 
     B, N = cfg.batch_frames, options().block_size
-    step, stream = plan_step(dev, B, analysis, bits_per_sample)
+    step, stream = plan_step(dev, B, analysis, bits_per_sample, frame_pack,
+                             pack_budget)
     width = 2 if bits_per_sample == 16 else 4  # the batch's dtype
-    inputs = [torch.from_numpy(p).to(dev) for p in encode_batches(
-        B, N, bits_per_sample, copies(dev, B * 2 * N * width))]
+    if inputs is None:
+        inputs = [torch.from_numpy(p).to(dev) for p in encode_batches(
+            B, N, bits_per_sample, copies(dev, B * 2 * N * width))]
     sync(dev)
     ms = (window_ms(dev, stream, step, inputs, chain, cfg.reps) if scan
           else dispatch_ms(dev, step, inputs, chain, cfg.reps))

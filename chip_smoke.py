@@ -138,7 +138,22 @@ non-zero without one, and outside a checkout).  Phases:
    stream, K3 in the decode step and both pipelines and K4 in the
    device-parse pipeline; the 24 s decode stream, made by the f64
    ``BatchEncoder``, is the tracked ``.bench_cache/bench_p8_24s_seed3.
-   flac`` byte for byte (so ``compression_ratio_preset8`` is 0.6676).
+   flac`` byte for byte (so ``compression_ratio_preset8`` is 0.6676);
+24. the encode-step profiler ``tools/profile_encode_torch.py`` in
+   process (loaded from its file), f32 and f64, at a chain of
+   ``PROFILE_CHAIN``: ``insitu`` (``unattributed``, the kernel time the
+   profiler links to no launch, is at most ``UNATTRIBUTED_SHARE`` of the
+   eager plan's; the plan's own range, which no finer stage range covers,
+   holds at most ``PLAN_OWN_SHARE`` of its launches and of its kernel
+   time; the eager plan's launches are within ``LAUNCH_SHARE`` of the
+   replay's),
+   ``stages`` (every stage graph's output equal to its eager output;
+   ``kernels.LAUNCHES``, zeroed before, counted K1 and K2, and the
+   autocorrelation in f64; the stage graphs' stream pool released) and
+   ``ablate`` at 1 and 2 times 256 frames (every time positive); neither
+   ``insitu`` nor ``stages`` captured a plan graph (they profile the
+   graphs the encoders of phases 3-4 captured), and every attribute the
+   stage ranges patch is the original again.
 
 Every encoder and decoder here runs with CUDA graphs on (the default)
 but those of phases 17 and 18 that ask for ``graphs=False``; every graph
@@ -2552,6 +2567,87 @@ def check_bench(dev, root) -> None:
           f"MiB, on {card()}")
 
 
+# phase 24: the profiler's chain of back-to-back replays; the most of the
+# eager plan's kernel time the profiler may leave unlinked to a launch;
+# the most of its launches and kernel time the plan's own range may hold
+# beside its stage ranges (the assignment choice); how far, as a share,
+# the eager plan's launches may be from the replay's (which copies its
+# input in, and whose first-use constants an eager run late in a process
+# may find built)
+PROFILE_CHAIN = 8
+UNATTRIBUTED_SHARE = 0.05
+PLAN_OWN_SHARE = 0.01
+LAUNCH_SHARE = 0.01
+
+
+def load_tool(root, name: str):
+    """The module ``tools/<name>.py``, loaded from its file, so that the
+    JAX package's tools beside it never come onto ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # its dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_profile(dev, root) -> None:
+    """Phase 24: ``tools/profile_encode_torch.py``'s three modes on the
+    card, in process (module docstring)."""
+    from flac_codec_tpu_torch import kernels
+    from flac_codec_tpu_torch.ops.encode_batch import PLAN_GRAPHS
+
+    pe = load_tool(root, "profile_encode_torch")
+    attrs = pe.patched_attributes()
+    planned = set(PLAN_GRAPHS)
+    for analysis in ("f32", "f64"):
+        cfg = pe.Config(analysis=analysis, chain=PROFILE_CHAIN)
+        t = time.perf_counter()
+        ins = pe.insitu(dev, cfg)
+        share, diff = ins["unattributed_share"], ins["launch_difference"]
+        own = max(ins["plan_own_share"],
+                  ins["plan_own_launches"] / ins["eager_launches"])
+        if not (share <= UNATTRIBUTED_SHARE and own <= PLAN_OWN_SHARE
+                and abs(diff) <= LAUNCH_SHARE * ins["replay_launches"]):
+            raise AssertionError(
+                f"profile {analysis} insitu: unattributed share {share} "
+                f"(at most {UNATTRIBUTED_SHARE}), the plan's own range "
+                f"{own} (at most {PLAN_OWN_SHARE}), eager less replay "
+                f"launches {diff} (at most {LAUNCH_SHARE} of the replay's "
+                f"{ins['replay_launches']})")
+        kernels.reset_launches()
+        st = pe.stages(dev, cfg)
+        launches = dict(kernels.LAUNCHES)
+        want = ENCODE_KERNELS + (("autocorr_levinson",)
+                                 if analysis == "f64" else ())
+        missing = [k for k in want if launches[k] <= 0]
+        if missing or not all(r["equal"] for r in st["rows"]) \
+                or not st["stage_pool_released"]:
+            raise AssertionError(
+                f"profile {analysis} stages: kernels not launched "
+                f"{missing}, stage pool released "
+                f"{st['stage_pool_released']}")
+        secs = time.perf_counter() - t
+        print(f"profile {analysis}: insitu and stages {secs:.1f} s, "
+              f"unattributed {share:.2%}, the plan's own range {own:.2%}, "
+              f"eager less replay launches {diff:+.0f}, stage launches "
+              f"{launches}, {len(st['rows'])} stages equal to eager, full "
+              f"replay moved while timing after {st['moved_while_timing']}, on {card()}")
+    if set(PLAN_GRAPHS) != planned:
+        raise AssertionError(f"profile: insitu and stages captured "
+                             f"{len(set(PLAN_GRAPHS) - planned)} plan "
+                             "graphs, not the encoders' own")
+    after = pe.patched_attributes()
+    if any(after[k] is not v for k, v in attrs.items()):
+        raise AssertionError("profile: a patched stage attribute was not "
+                             "restored")
+    ab = pe.ablate(dev, pe.Config(chain=PROFILE_CHAIN), multiples=(1, 2))
+    if not all(r["ms"] > 0 and r["mbps"] > 0 for r in ab["rows"]):
+        raise AssertionError(f"profile ablate: {ab['rows']}")
+
+
 def stage_ms(path: str, names) -> dict:
     """Sum of each named stage's ms in a FLAC_TPU_TRACE JSONL file."""
     out = dict.fromkeys(names, 0.0)
@@ -2787,6 +2883,9 @@ def main() -> int:
 
     # ---- 23. the benchmark's sections on the card, counted ----
     check_bench(dev, root)
+
+    # ---- 24. the encode-step profiler's three modes ----
+    check_profile(dev, root)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "call_ms", "profiler_ms", "plain_ms",

@@ -187,15 +187,17 @@ def _forbidden(module: str) -> bool:
 def test_port_sources_never_import_jax():
     """No module of the port, not chip_smoke.py or bench_torch.py, and
     none of the port's tools (``tools/fuzz_roundtrip_torch.py``,
-    ``tools/bench_*.py``, ``tools/chain_latency.py``) imports jax, jaxlib
+    ``tools/bench_*.py``, ``tools/chain_latency.py``,
+    ``tools/profile_encode_torch.py``) imports jax, jaxlib
     or any module of the JAX package ``flac_codec_tpu``: no import
     statement, relative or absolute, and no ``import_module`` or
     ``__import__`` call, names one."""
     tools = ROOT / "tools"
     port_tools = ([tools / "fuzz_roundtrip_torch.py",
-                   tools / "chain_latency.py"]
+                   tools / "chain_latency.py",
+                   tools / "profile_encode_torch.py"]
                   + sorted(tools.glob("bench_*.py")))
-    assert len(port_tools) >= 6 and all(p.is_file() for p in port_tools)
+    assert len(port_tools) >= 7 and all(p.is_file() for p in port_tools)
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                             ROOT / "bench_torch.py"]
              + port_tools)
@@ -221,7 +223,8 @@ def test_port_sources_never_import_jax():
 
 def test_port_runs_with_jax_blocked():
     """In a process where jax, jaxlib and every module of the JAX package
-    fail to import: import bench_torch.py and every module of the port,
+    fail to import: import bench_torch.py, tools/profile_encode_torch.py
+    and every module of the port,
     encode with the port's BatchEncoder and its own FlacSampleWriter
     (each also resolved through the package's exports), and decode the
     result with the port's BatchDecoder, with the host parse and with the
@@ -236,8 +239,12 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+import os
 import numpy as np
 import bench_torch
+sys.path.insert(0, os.path.join(os.path.dirname(bench_torch.__file__),
+                                "tools"))
+import profile_encode_torch
 import flac_codec_tpu_torch
 for m in pkgutil.walk_packages(flac_codec_tpu_torch.__path__,
                                "flac_codec_tpu_torch."):
