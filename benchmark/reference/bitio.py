@@ -1,0 +1,400 @@
+# Frozen copy of flac_codec_tpu_torch/bitio.py at commit be3fb28 (no native engine:
+# its array paths are numpy here).  Do not edit to follow the program.
+"""Host bit engine: MSB-first bit reader/writer/recorder.
+
+Re-implements the subset of the reference's external ``bitstream-io`` crate
+that the FLAC format needs (reference: SURVEY §2.1 — BitReader, BitWriter,
+BitRecorder, read/write_unary, signed counted reads/writes).  Unary coding is
+FLAC's: a value ``n`` is ``n`` zero bits followed by a one bit.
+
+Hot array paths (Rice runs, fixed-width runs, blob concatenation) delegate to
+numpy; scalar paths are pure Python.
+"""
+
+from __future__ import annotations
+
+import io
+from typing import BinaryIO, Optional
+
+import numpy as np
+
+from .errors import EndOfStream
+
+
+def _pack_fields(area: np.ndarray, pos: int, values: np.ndarray,
+                 nbits: np.ndarray, widths: np.ndarray) -> int:
+    """OR fields into the zeroed uint8 ``area`` from bit ``pos``, MSB
+    first: field i spans ``widths[i]`` bits and ends with the low
+    ``nbits[i]`` (at most 64) bits of ``values[i]`` (uint64), zeros
+    before them.  Returns the end bit position."""
+    ends = pos + np.cumsum(widths.astype(np.int64))
+    end = int(ends[-1]) if len(ends) else pos
+    if end == pos:
+        return end
+    base = pos - pos % 64
+    nb = nbits.astype(np.int64)
+    start = ends - nb - base  # bit of each field's first value bit
+    word, off = start >> 6, start & 63
+    v = values.astype(np.uint64) & np.where(
+        nb >= 64, np.uint64(0xFFFFFFFFFFFFFFFF),
+        (np.uint64(1) << np.minimum(nb, 63).astype(np.uint64)) - np.uint64(1))
+    words = np.zeros(int(word.max()) + 2, dtype=np.uint64)
+    # the part of each field in its first word, then what spills over
+    lo = 64 - off - nb  # left shift in the first word, < 0 if it spills
+    head = np.where(lo >= 0, v << np.maximum(lo, 0).astype(np.uint64),
+                    v >> np.minimum(-lo, 63).astype(np.uint64))
+    np.bitwise_or.at(words, word, head)
+    spill = lo < 0
+    np.bitwise_or.at(words, word[spill] + 1,
+                     v[spill] << (64 + lo[spill]).astype(np.uint64))
+    packed = words.astype(">u8").view(np.uint8)
+    first = base // 8
+    stop = min(len(area), first + len(packed))
+    area[first:stop] |= packed[:stop - first]
+    return end
+
+
+class BitWriter:
+    """MSB-first bit writer backed by a bytearray."""
+
+    __slots__ = ("buf", "_acc", "_accbits")
+
+    def __init__(self) -> None:
+        self.buf = bytearray()
+        self._acc = 0
+        self._accbits = 0
+
+    # -- core ---------------------------------------------------------------
+
+    def write(self, value: int, nbits: int) -> None:
+        """Write the low ``nbits`` bits of ``value`` (unsigned)."""
+        if nbits == 0:
+            return
+        self._acc = (self._acc << nbits) | (value & ((1 << nbits) - 1))
+        self._accbits += nbits
+        while self._accbits >= 8:
+            self._accbits -= 8
+            self.buf.append((self._acc >> self._accbits) & 0xFF)
+        self._acc &= (1 << self._accbits) - 1
+
+    def write_signed(self, value: int, nbits: int) -> None:
+        """Write a two's-complement signed value of ``nbits`` bits."""
+        self.write(value & ((1 << nbits) - 1), nbits)
+
+    def write_unary(self, q: int) -> None:
+        """Write ``q`` zero bits followed by a one bit."""
+        while q >= 32:
+            self.write(0, 32)
+            q -= 32
+        self.write(1, q + 1)
+
+    def write_bit(self, bit: bool) -> None:
+        self.write(1 if bit else 0, 1)
+
+    def write_bytes(self, data: bytes) -> None:
+        if self._accbits == 0:
+            self.buf.extend(data)
+        else:
+            for b in data:
+                self.write(b, 8)
+
+    def byte_align(self) -> None:
+        if self._accbits:
+            self.write(0, 8 - self._accbits)
+
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def bit_count(self) -> int:
+        return len(self.buf) * 8 + self._accbits
+
+    def written(self) -> int:
+        """Bit count written so far (reference: BitRecorder::written())."""
+        return self.bit_count
+
+    def getvalue(self) -> bytes:
+        assert self._accbits == 0, "bitstream not byte-aligned"
+        return bytes(self.buf)
+
+    # -- array fast paths ---------------------------------------------------
+
+    def write_rice_array(self, residuals: np.ndarray, k: int) -> None:
+        """Rice-encode an int32 residual array with parameter ``k``.
+
+        Zigzag + unary + k LSBs per residual (reference:
+        src/stream.rs:3044-3078).
+        """
+        wide = len(residuals) and (
+            int(np.max(residuals)) > 0x7FFFFFFF
+            or int(np.min(residuals)) < -0x80000000)
+        if len(residuals) > 8 and not wide:
+            v = np.asarray(residuals).astype(np.int64)
+            u = np.where(v < 0, ((-v - 1) << 1) + 1, v << 1).astype(np.uint64)
+            q = (u >> np.uint64(k)).astype(np.int64)
+            total_bits = int(q.sum()) + (k + 1) * len(v)
+            # a code: q zeros, then the stop bit and the k low bits
+            low = u & np.uint64((1 << k) - 1)
+            self._reserve_and_pack(
+                total_bits, lambda out, pos: _pack_fields(
+                    out, pos, (np.uint64(1) << np.uint64(k)) | low,
+                    np.full(len(v), k + 1), q + k + 1))
+        else:
+            for r in residuals:
+                r = int(r)
+                u = ((-r - 1) << 1) + 1 if r < 0 else r << 1
+                self.write_unary(u >> k)
+                if k:
+                    self.write(u & ((1 << k) - 1), k)
+
+    def write_fields(self, values: np.ndarray, nbits: np.ndarray,
+                     widths: np.ndarray) -> None:
+        """Write fields in order: field i spans ``widths[i]`` bits, zeros
+        then the low ``nbits[i]`` bits of ``values[i]``."""
+        self._reserve_and_pack(
+            int(widths.sum()),
+            lambda out, pos: _pack_fields(out, pos, values, nbits, widths))
+
+    def write_signed_array(self, values: np.ndarray, width: int) -> None:
+        """Write two's-complement values; raises OverflowError when a value
+        does not fit (mirrors bitstream-io's checked signed writes, which the
+        reference encoder relies on to reject impossible escape codes)."""
+        if width == 0:
+            return  # zero-width fields carry no bits (read side zero-fills)
+        if len(values):
+            v = np.asarray(values)
+            lo, hi = -(1 << (width - 1)), (1 << (width - 1)) - 1
+            if int(v.min()) < lo or int(v.max()) > hi:
+                raise OverflowError(f"value out of range for {width}-bit write")
+        if len(values) > 8:
+            vals = np.asarray(values).astype(np.int64).astype(np.uint64)
+            self._reserve_and_pack(
+                width * len(vals), lambda out, pos: _pack_fields(
+                    out, pos, vals, np.full(len(vals), width),
+                    np.full(len(vals), width)))
+        else:
+            for v in values:
+                self.write_signed(int(v), width)
+
+    def _reserve_and_pack(self, total_bits: int, packer) -> None:
+        """Flush accumulator into a zeroed numpy area and pack into it."""
+        # flush accumulator bits into buf, remembering partial-bit position
+        head_bits = self._accbits
+        head_val = self._acc
+        self._acc = 0
+        self._accbits = 0
+        nbytes = (head_bits + total_bits + 7) // 8
+        area = np.zeros(nbytes + 8, dtype=np.uint8)
+        pos = 0
+        if head_bits:
+            # place pending accumulator bits at the head of the area
+            area[0] = (head_val << (8 - head_bits)) & 0xFF
+            pos = head_bits
+        end = packer(area, pos)
+        # re-absorb the trailing partial byte into the accumulator
+        full_bytes = end // 8
+        rem = end % 8
+        self.buf.extend(area[:full_bytes].tobytes())
+        if rem:
+            self._acc = int(area[full_bytes]) >> (8 - rem)
+            self._accbits = rem
+
+    def append_recorder(self, rec: "BitWriter") -> None:
+        """Append all bits recorded in ``rec`` (BitRecorder playback;
+        reference: src/encode.rs:2332-2333)."""
+        if self._accbits == 0:
+            self.buf.extend(rec.buf)
+        else:
+            if len(rec.buf) > 16:
+                src = np.frombuffer(bytes(rec.buf), dtype=np.uint8)
+                self._reserve_and_pack(
+                    len(rec.buf) * 8, lambda out, pos: _pack_fields(
+                        out, pos, src.astype(np.uint64), np.full(len(src), 8),
+                        np.full(len(src), 8)))
+            else:
+                for b in rec.buf:
+                    self.write(b, 8)
+        if rec._accbits:
+            self.write(rec._acc, rec._accbits)
+
+
+# The reference distinguishes BitRecorder from BitWriter; here a recorder is
+# simply a BitWriter whose bits are later appended to another writer.
+BitRecorder = BitWriter
+
+
+class BitReader:
+    """MSB-first bit reader over an in-memory buffer with optional refill.
+
+    When constructed from a stream, bytes are pulled in chunks; consumed
+    prefix can be discarded with :meth:`discard_consumed` between frames.
+    Raises :class:`EndOfStream` past the end.
+    """
+
+    __slots__ = ("data", "pos", "_source", "_base", "_eof", "_np_view",
+                 "_gbuf", "_gbuf_len")
+
+    CHUNK = 1 << 16
+
+    def __init__(self, data: bytes | bytearray | None = None,
+                 source: Optional[BinaryIO] = None) -> None:
+        self.data = bytearray(data or b"")
+        self.pos = 0  # bit position within self.data
+        self._gbuf = None       # cached guarded numpy view of self.data
+        self._gbuf_len = -1
+        self._source = source
+        self._base = 0  # absolute byte offset of data[0] in the source
+        self._eof = source is None
+        self._np_view: Optional[np.ndarray] = None
+
+    @classmethod
+    def from_stream(cls, fp: BinaryIO) -> "BitReader":
+        return cls(source=fp)
+
+    # -- buffer management --------------------------------------------------
+
+    def _ensure_bits(self, nbits: int) -> bool:
+        """Ensure at least ``nbits`` readable bits; False at EOF."""
+        need_bytes = (self.pos + nbits + 7) // 8
+        while len(self.data) < need_bytes:
+            if self._eof:
+                return False
+            chunk = self._source.read(max(self.CHUNK, need_bytes - len(self.data)))
+            if not chunk:
+                self._eof = True
+                return len(self.data) >= need_bytes
+            self.data.extend(chunk)
+        return True
+
+    def fill_to_eof(self) -> None:
+        if not self._eof:
+            while True:
+                chunk = self._source.read(1 << 20)
+                if not chunk:
+                    break
+                self.data.extend(chunk)
+            self._eof = True
+
+    def np_view(self) -> np.ndarray:
+        """Zero-copy uint8 view of the (fully read) buffer; pins it so
+        discard_consumed becomes a no-op while the view is live."""
+        self.fill_to_eof()
+        if self._np_view is None or len(self._np_view) != len(self.data):
+            self._np_view = np.frombuffer(self.data, dtype=np.uint8)
+        return self._np_view
+
+    def _guarded(self) -> np.ndarray:
+        """Cached copy of the buffer with 8 guard bytes for the native
+        array readers — rebuilding per call made each partition read
+        O(remaining stream)."""
+        if self._gbuf is None or self._gbuf_len != len(self.data):
+            self._gbuf = np.frombuffer(
+                bytes(self.data) + b"\x00" * 8, dtype=np.uint8)
+            self._gbuf_len = len(self.data)
+        return self._gbuf
+
+    def discard_consumed(self) -> None:
+        """Drop fully consumed bytes (call only at byte alignment points).
+        No-op while a numpy view pins the buffer."""
+        if self._np_view is not None:
+            return
+        nbytes = self.pos // 8
+        if nbytes:
+            del self.data[:nbytes]
+            self._base += nbytes
+            self.pos -= nbytes * 8
+            self._gbuf = None  # same-length refills must not reuse the cache
+
+    @property
+    def abs_byte_pos(self) -> int:
+        """Absolute byte offset in the source (requires byte alignment)."""
+        return self._base + self.pos // 8
+
+    def buffer_slice(self, start_byte: int, end_byte: int) -> bytes:
+        """Bytes [start, end) by absolute offset — both must be buffered."""
+        return bytes(self.data[start_byte - self._base:end_byte - self._base])
+
+    def at_eof(self) -> bool:
+        """True when no further bits are available."""
+        return not self._ensure_bits(1)
+
+    # -- scalar reads -------------------------------------------------------
+
+    def read(self, nbits: int) -> int:
+        if nbits == 0:
+            return 0
+        if not self._ensure_bits(nbits):
+            raise EndOfStream("bit read past end of stream")
+        pos = self.pos
+        start = pos >> 3
+        end = (pos + nbits + 7) >> 3
+        chunk = int.from_bytes(self.data[start:end], "big")
+        shift = end * 8 - (pos + nbits)
+        self.pos = pos + nbits
+        return (chunk >> shift) & ((1 << nbits) - 1)
+
+    def read_signed(self, nbits: int) -> int:
+        v = self.read(nbits)
+        if v >= 1 << (nbits - 1):
+            v -= 1 << nbits
+        return v
+
+    def read_bit(self) -> bool:
+        return bool(self.read(1))
+
+    def read_unary(self) -> int:
+        """Count zero bits until (and consuming) a one bit."""
+        count = 0
+        while True:
+            if not self._ensure_bits(1):
+                raise EndOfStream("unary read past end of stream")
+            pos = self.pos
+            byte = self.data[pos >> 3]
+            bit_in_byte = pos & 7
+            cur = (byte << bit_in_byte) & 0xFF
+            if cur == 0:
+                avail = 8 - bit_in_byte
+                count += avail
+                self.pos += avail
+            else:
+                lz = 8 - cur.bit_length() - 0  # leading zeros within window
+                count += lz
+                self.pos += lz + 1
+                return count
+
+    def skip(self, nbits: int) -> None:
+        if not self._ensure_bits(nbits):
+            raise EndOfStream("skip past end of stream")
+        self.pos += nbits
+
+    def byte_align(self) -> None:
+        self.pos = (self.pos + 7) & ~7
+
+    def read_bytes(self, n: int) -> bytes:
+        assert self.pos % 8 == 0
+        if not self._ensure_bits(n * 8):
+            raise EndOfStream("byte read past end of stream")
+        start = self.pos // 8
+        self.pos += n * 8
+        return bytes(self.data[start:start + n])
+
+    # -- array fast paths ---------------------------------------------------
+
+    def read_rice_array(self, n: int, k: int) -> np.ndarray:
+        """Read ``n`` Rice codes with parameter ``k`` into int64 (33-bit
+        side-channel residuals exceed int32; reference SubframeWidth::Wide)."""
+        out = np.empty(n, dtype=np.int64)
+        for i in range(n):
+            q = self.read_unary()
+            lsb = self.read(k) if k else 0
+            u = (q << k) | lsb
+            out[i] = -(u >> 1) - 1 if (u & 1) else (u >> 1)
+        return out
+
+    def read_signed_array(self, n: int, width: int) -> np.ndarray:
+        """Read ``n`` fixed-width two's-complement values into int64."""
+        if width == 0:
+            return np.zeros(n, dtype=np.int64)
+        out = np.empty(n, dtype=np.int64)
+        for i in range(n):
+            out[i] = self.read_signed(width)
+        return out
