@@ -17,6 +17,7 @@ from typing import BinaryIO, Optional
 import numpy as np
 
 from .errors import EndOfStream
+from .utils import trace
 
 
 def _native():
@@ -226,12 +227,15 @@ class BitReader:
         return True
 
     def fill_to_eof(self) -> None:
+        """Read the rest of the source into the buffer (once: the
+        ``decode.fill`` span)."""
         if not self._eof:
-            while True:
-                chunk = self._source.read(1 << 20)
-                if not chunk:
-                    break
-                self.data.extend(chunk)
+            with trace.stage("decode.fill"):
+                while True:
+                    chunk = self._source.read(1 << 20)
+                    if not chunk:
+                        break
+                    self.data.extend(chunk)
             self._eof = True
 
     def np_view(self) -> np.ndarray:

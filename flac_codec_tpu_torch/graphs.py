@@ -89,6 +89,7 @@ import weakref
 import torch
 
 from . import kernels
+from .utils import trace
 
 # each (device, stream)'s graph memory pool, a weak reference to its
 # torch.cuda.MemPool: the stream's graphs hold the pool, so it lives as
@@ -196,16 +197,20 @@ class CapturedGraph:
     graph's input and any constant it built), ``peak_bytes``
     (``max_memory_reserved`` during them, less ``memory_reserved``
     before) and ``capture_seconds`` (warm-up and capture) describe it.
+    The warm-up and capture are one ``graph.capture`` span (``kind``:
+    the class's name; ``meta``, such as the shape, as the span's meta).
     """
 
-    def __init__(self, fn, make_input, stream):
+    def __init__(self, fn, make_input, stream, **meta):
         dev = stream.device
         self.stream = stream
         self.replays = 0
         self.pool = stream_pool(stream)
         key = (dev, stream.cuda_stream)
         t0 = time.perf_counter()
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
+        with (trace.stage("graph.capture", kind=type(self).__name__,
+                          **meta),
+              torch.cuda.device(dev), torch.cuda.stream(stream)):
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             _PEAKS[_card(dev)] = max_memory_reserved(dev)

@@ -327,7 +327,7 @@ class PlanGraph(CapturedGraph):
         super().__init__(
             lambda pcm: encode_frames_plan(pcm, **kw),
             lambda: torch.zeros(shape, dtype=dtype, device=stream.device),
-            stream)
+            stream, shape=tuple(shape))
 
     def replay(self, pcm: torch.Tensor) -> dict:
         """Copy ``pcm`` (on the card, or pinned on the host) into the

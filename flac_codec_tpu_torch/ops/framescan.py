@@ -513,7 +513,7 @@ class ParseGraph(CapturedGraph):
                                      bits_per_sample),
             lambda: torch.zeros(16 * frames + capacity, dtype=torch.uint8,
                                 device=stream.device),
-            stream)
+            stream, shape=(frames, capacity))
 
 
 # every parse graph of the process, by parse_graph's key

@@ -316,7 +316,10 @@ class BatchEncoder:
         self.fallback_frames = 0
         # in-flight (host leaves, copy events, pcm, raw chunk)
         self._pending: List = []
-        self._profiler = trace.profiler_session("batch-encode")
+        # this encoder's spans' request id
+        self.request_id = trace.new_request()
+        self._profiler = trace.profiler_session("batch-encode",
+                                                self.request_id)
         self._profiler.__enter__()
 
     def write(self, samples) -> None:
@@ -343,7 +346,7 @@ class BatchEncoder:
         cuda = any(d.type == "cuda" for d, _ in self._shards)
         narrow = self.encoder.streaminfo.bits_per_sample <= 16
         out, events, lo = None, [], 0
-        with trace.stage("encode.dispatch", frames=B):
+        with trace.stage("encode.dispatch", req=self.request_id, frames=B):
             host = torch.zeros((self.batch_frames,) + pcm.shape[1:],
                                dtype=torch.int16 if narrow else torch.int32,
                                pin_memory=cuda)
@@ -385,14 +388,14 @@ class BatchEncoder:
         enc = self.encoder
         plan, events, pcm, chunk = self._pending.pop(0)
         B = pcm.shape[0]
-        with trace.stage("encode.download", frames=B):
+        with trace.stage("encode.download", req=self.request_id, frames=B):
             for event in events:
                 event.synchronize()
             plan = plan_to_numpy(plan)
-        with trace.stage("encode.md5"):
+        with trace.stage("encode.md5", req=self.request_id):
             enc.md5.update(
                 samples_to_bytes(chunk, enc.streaminfo.bits_per_sample))
-        with trace.stage("encode.assemble", frames=B):
+        with trace.stage("encode.assemble", req=self.request_id, frames=B):
             frames, fallback = assemble_frames(
                 plan, pcm, enc.streaminfo, enc.frame_number, enc.options)
         self.device_frames += B
@@ -413,6 +416,14 @@ class BatchEncoder:
                                          else max(si.maximum_frame_size, size))
 
     def finalize(self) -> None:
+        """Encode what is left, write the metadata, close an owned file,
+        end the profiler session and write the trace's records (the
+        ``encode.finalize`` span, also on an error)."""
+        with trace.stage("encode.finalize", req=self.request_id,
+                         flush=True):
+            self._finalize()
+
+    def _finalize(self) -> None:
         enc = self.encoder
         frame_len = self._block * self._chans
         # whole frames first (a short batch), then the partial tail via the

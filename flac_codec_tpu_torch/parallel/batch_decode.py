@@ -171,7 +171,7 @@ class ReconstructGraph(CapturedGraph):
                                              mode=mode, taps=taps),
             lambda: torch.zeros(recon_len(*shape), dtype=torch.int32,
                                 device=stream.device),
-            stream)
+            stream, shape=tuple(shape), mode=mode, taps=taps)
 
 
 # every reconstruct graph of the process, by reconstruct_graph's key
@@ -257,7 +257,10 @@ class BatchDecoder:
         self.device_frames = 0
         self.host_frames = 0
         self.parse_fallbacks = 0
-        self._profiler = trace.profiler_session("batch-decode")
+        # this decoder's spans' request id
+        self.request_id = trace.new_request()
+        self._profiler = trace.profiler_session("batch-decode",
+                                                self.request_id)
         self._profiler.__enter__()
 
     @property
@@ -271,11 +274,14 @@ class BatchDecoder:
         return self.decoder.seek(sample)
 
     def close(self) -> None:
-        if self._owns_fp:
-            self.decoder.fp.close()
-        if self._profiler is not None:
-            self._profiler.__exit__(None, None, None)
-            self._profiler = None
+        """Close an owned file, end the profiler session and write the
+        trace's records (the ``decode.close`` span)."""
+        with trace.stage("decode.close", req=self.request_id, flush=True):
+            if self._owns_fp:
+                self.decoder.fp.close()
+            if self._profiler is not None:
+                self._profiler.__exit__(None, None, None)
+                self._profiler = None
 
     def __enter__(self):
         return self
@@ -291,7 +297,8 @@ class BatchDecoder:
     def _host_frame(self):
         """One frame through the host decoder, which raises the precise
         error for a bad frame; None at end of stream."""
-        frame = self.decoder.read_frame()
+        with trace.stage("decode.host_frame", req=self.request_id):
+            frame = self.decoder.read_frame()
         if frame is None:
             return None
         self.host_frames += 1
@@ -308,7 +315,8 @@ class BatchDecoder:
         if remaining is not None and remaining <= 0:
             return None
         max_block = si.maximum_block_size or 65535
-        with trace.stage("decode.bulk_host", frames=self.batch_frames):
+        with trace.stage("decode.bulk_host", req=self.request_id,
+                         frames=self.batch_frames):
             out, sizes, end, err = self._nat.decode_frames(
                 dec.r.np_view(), dec.r.pos, self.batch_frames,
                 si.sample_rate, si.channels, si.bits_per_sample,
@@ -332,12 +340,13 @@ class BatchDecoder:
     def _stage(self, nbytes: int) -> torch.Tensor:
         """A host uint8 buffer of ``nbytes`` for one batch's upload: on
         CUDA the decoder's pinned buffer, reused once its last copies have
-        left it; on the CPU a new one."""
+        left it (the ``decode.stage_wait`` span); on the CPU a new one."""
+        with trace.stage("decode.stage_wait", req=self.request_id):
+            for event in self._staged:
+                event.synchronize()
+        self._staged = []
         if not self._cuda:
             return torch.empty(nbytes, dtype=torch.uint8)
-        for event in self._staged:
-            event.synchronize()
-        self._staged = []
         if self._staging is None or len(self._staging) < nbytes:
             self._staging = torch.empty(max(nbytes, 1 << 20),
                                         dtype=torch.uint8, pin_memory=True)
@@ -383,7 +392,8 @@ class BatchDecoder:
         if remaining is not None and remaining <= 0:
             return None
         view = dec.r.np_view()
-        with trace.stage("decode.scan", frames=self.batch_frames):
+        with trace.stage("decode.scan", req=self.request_id,
+                         frames=self.batch_frames):
             scan = self._nat.scan_frames(
                 view, dec.r.pos, self.batch_frames, si.sample_rate,
                 si.channels, si.bits_per_sample, self.block_size, remaining)
@@ -395,9 +405,10 @@ class BatchDecoder:
         bucket = frame_bucket(B, self.batch_frames)
         C, N = si.channels, self.block_size
         (d, s), = self._shards
-        with trace.stage("decode.upload", frames=B):
+        with trace.stage("decode.upload", req=self.request_id, frames=B):
             blob, cap = self._upload(view, scan, bucket)
-        with trace.stage("decode.parse_device", frames=B), on_stream(s):
+        with trace.stage("decode.parse_device", req=self.request_id,
+                         frames=B), on_stream(s):
             if self.graphs and d.type == "cuda":
                 graph = parse_graph(s, bucket, cap, N, C,
                                     si.bits_per_sample)
@@ -409,14 +420,16 @@ class BatchDecoder:
                 self._copied(s)
                 parsed, gate = parse_batch(blob, bucket, N, C,
                                            si.bits_per_sample)
-            all_ok, order_max, fixed = gate.tolist()
+            with trace.stage("decode.gate_wait", req=self.request_id):
+                all_ok, order_max, fixed = gate.tolist()
         if not all_ok:
             return "fallback"
         dec.r.pos = scan["end_bitpos"]
         dec.current_sample += int(scan["blocks"].sum())
         mode = "fixed" if fixed else "lpc"
         taps = 32 if fixed else tap_bucket(order_max)
-        with trace.stage("decode.reconstruct", frames=B, mode=mode):
+        with trace.stage("decode.reconstruct", req=self.request_id,
+                         frames=B, mode=mode):
             pcm = self._reconstruct(
                 [tuple(parsed[k] for k in RECON_KEYS)], bucket, B, mode,
                 taps)
@@ -428,7 +441,13 @@ class BatchDecoder:
         block_size) int32 tensor on the device and the per-frame sample
         counts, or None at end of stream.  A short tail, and a frame the
         native parser stops at, go to the host decoder.  The tensor is
-        the caller's: later batches do not write to it."""
+        the caller's: later batches do not write to it.  The call is
+        the ``decode.read`` span, parent of the batch's stage spans."""
+        with trace.stage("decode.read", req=self.request_id,
+                         self_record=True):
+            return self._read_batch()
+
+    def _read_batch(self):
         if not self._fixed_blocks:
             return self._read_batch_bulk_host()
         if self._device_parse:
@@ -441,7 +460,8 @@ class BatchDecoder:
         remaining = self._remaining()
         if remaining is not None and remaining <= 0:
             return None
-        with trace.stage("decode.parse", frames=self.batch_frames):
+        with trace.stage("decode.parse", req=self.request_id,
+                         frames=self.batch_frames):
             raw = self._nat.parse_frames_raw(
                 dec.r.np_view(), dec.r.pos, self.batch_frames,
                 si.sample_rate, si.channels, si.bits_per_sample,
@@ -462,7 +482,8 @@ class BatchDecoder:
         mode = "fixed" if fixed else "lpc"
         taps = 32 if fixed else tap_bucket(int(raw["order"].max()))
         bucket = frame_bucket(n, self.batch_frames)
-        with trace.stage("decode.reconstruct", frames=n, mode=mode):
+        with trace.stage("decode.reconstruct", req=self.request_id,
+                         frames=n, mode=mode):
             # one staged reconstruct blob per shard of the padded batch,
             # padding rows zero
             sizes = _shard_sizes(bucket, len(self._shards))

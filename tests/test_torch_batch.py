@@ -8,6 +8,7 @@ In f32 analysis the stream must decode losslessly with a matching MD5.
 
 import ast
 import io
+import json
 import os
 import pathlib
 import struct
@@ -153,9 +154,19 @@ def test_profiler_session_writes_trace(tmp_path, monkeypatch):
     monkeypatch.setenv("FLAC_TPU_PROFILE_DIR", str(tmp_path))
     rng = np.random.default_rng(25)
     inter = _music(rng, 512 * 2, 2, 16)
-    _encode(tbatch.BatchEncoder, inter, Options(block_size=512), 44100, 16,
-            2, 1024, device="cpu")
-    assert (tmp_path / "batch-encode" / "trace.json").stat().st_size > 0
+    encoders = [_encode(tbatch.BatchEncoder, inter, Options(block_size=512),
+                        44100, 16, 2, 1024, device="cpu")[1]
+                for _ in range(2)]
+    # one file a pipeline, named by its request id, with the program's
+    # stage spans as ranges beside the operators
+    names = {f"trace-{enc.request_id}.json" for enc in encoders}
+    assert len(names) == 2
+    assert {p.name for p in (tmp_path / "batch-encode").iterdir()} == names
+    for name in names:
+        with open(tmp_path / "batch-encode" / name) as f:
+            events = json.load(f)["traceEvents"]
+        assert {"encode.dispatch", "encode.assemble"} <= {
+            e.get("name") for e in events}
 
 
 def test_batch_encoder_refuses_missing_cuda(monkeypatch):

@@ -16,9 +16,9 @@ each run and ends with one JSON line of the medians, in MB/s of PCM, and
 the native engine's flavor, with the card's name and power limit; exits
 non-zero without a GPU.  ``--stages`` adds the stage times of each
 case's median run (``FLAC_TPU_TRACE``, host clock; ``decode.parse`` is
-the native engine's share of the host-parse decode); the trace writes a
-file line per stage and batch, which slows every case, so compare
-traced runs only with traced runs.  ``FLAC_TPU_PORTABLE_SO=1`` loads the
+the native engine's share of the host-parse decode); the trace keeps
+its spans in memory and writes them as each pipeline ends, which slows
+every case a little, so compare traced runs only with traced runs.  ``FLAC_TPU_PORTABLE_SO=1`` loads the
 portable native build on an x86-64-v3 host: run it against unset, in
 turns, to time the two flavors.
 """
