@@ -188,6 +188,8 @@ class BitReader:
 
     When constructed from a stream, bytes are pulled in chunks; consumed
     prefix can be discarded with :meth:`discard_consumed` between frames.
+    :meth:`fill_to_eof` takes the rest of the stream as one read-only
+    buffer, after which ``data`` is a ``memoryview``.
     Raises :class:`EndOfStream` past the end.
     """
 
@@ -227,20 +229,44 @@ class BitReader:
         return True
 
     def fill_to_eof(self) -> None:
-        """Read the rest of the source into the buffer (once: the
-        ``decode.fill`` span)."""
-        if not self._eof:
-            with trace.stage("decode.fill"):
-                while True:
-                    chunk = self._source.read(1 << 20)
-                    if not chunk:
-                        break
+        """Take the rest of the source as one read-only buffer (once: the
+        ``decode.fill`` span, whose ``how`` says which way and ``bytes``
+        how large the buffer is).
+
+        ``view``: a source with ``getvalue()`` returning ``bytes`` (a
+        ``BytesIO``) lends them, uncopied; ``chunks``: any other is read
+        a MiB at a time."""
+        if self._eof:
+            return
+        with trace.stage("decode.fill"):
+            how, data = "view", self._lend()
+            if data is None:
+                how = "chunks"
+                while chunk := self._source.read(1 << 20):
                     self.data.extend(chunk)
+                data = memoryview(self.data)
+            self.data = data.toreadonly()
             self._eof = True
+            trace.note("decode.fill", how=how, bytes=len(data))
+
+    def _lend(self) -> Optional[memoryview]:
+        """The source's own bytes from where ``data[0]`` sits, the source
+        left at its end; None when it cannot lend them."""
+        src = self._source
+        try:
+            whole = src.getvalue()
+            if not isinstance(whole, bytes):
+                return None
+            start = src.tell() - len(self.data)
+            src.seek(0, io.SEEK_END)
+        except (AttributeError, OSError, ValueError):
+            return None
+        return memoryview(whole)[start:]
 
     def np_view(self) -> np.ndarray:
-        """Zero-copy uint8 view of the (fully read) buffer; pins it so
-        discard_consumed becomes a no-op while the view is live."""
+        """Zero-copy uint8 view of the (fully read) buffer, read-only
+        when a fill made it; pins it so discard_consumed becomes a no-op
+        while the view is live."""
         self.fill_to_eof()
         if self._np_view is None or len(self._np_view) != len(self.data):
             self._np_view = np.frombuffer(self.data, dtype=np.uint8)
@@ -263,7 +289,10 @@ class BitReader:
             return
         nbytes = self.pos // 8
         if nbytes:
-            del self.data[:nbytes]
+            if isinstance(self.data, bytearray):
+                del self.data[:nbytes]
+            else:
+                self.data = self.data[nbytes:]
             self._base += nbytes
             self.pos -= nbytes * 8
             self._gbuf = None  # same-length refills must not reuse the cache

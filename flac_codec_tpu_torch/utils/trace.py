@@ -28,9 +28,10 @@ children covered), ``start_ns`` and ``end_ns`` (unix ns on the clock
 that ``torch.profiler`` stamps its events with, ``CLOCK_REALTIME``:
 ``time.perf_counter_ns()`` plus one offset to ``time.time_ns()`` taken
 at import), ``id``, ``parent`` (None at the top) and ``req``, then the
-site's meta.  A span opened with ``self_record=True`` also writes a
-record ``<name>.self`` whose ``ms`` is its self time (``span``: its id),
-for readers that take the mean ms of a stage.
+site's meta (given to ``stage``, or to :func:`note` inside the span).
+A span opened with ``self_record=True`` also writes a record
+``<name>.self`` whose ``ms`` is its self time (``span``: its id), for
+readers that take the mean ms of a stage.
 
 Next to nothing when disabled: ``stage()`` returns one shared no-op
 context manager.  Times are the host's clock; a stage that launches
@@ -154,6 +155,16 @@ def stage(name: str, **meta):
 
         return torch.profiler.record_function(name)
     return _NOOP
+
+
+def note(name: str, **meta) -> None:
+    """Add ``meta`` to the span ``name``, which must be the innermost open
+    on this thread, for what a site learns only inside its span (nothing
+    when tracing is off)."""
+    if _MODE:
+        stack = getattr(_open, "spans", None)
+        assert stack and stack[-1].name == name, (name, stack)
+        stack[-1].meta.update(meta)
 
 
 def flush() -> None:

@@ -15,6 +15,7 @@ equality: the inverse-LPC recurrence is exact in int64 in both packages.
 * the port's ``flac2wav --device cpu`` against the JAX ``flac2wav --tpu``.
 """
 
+import functools
 import hashlib
 import io
 import json
@@ -29,16 +30,20 @@ import torch
 
 from chip_smoke import INT32_EDGE_CASES, int32_edge_rows
 from flac_codec_tpu.cli import flac2wav as jax_flac2wav
+from flac_codec_tpu.decode import Decoder as JaxHostDecoder
 from flac_codec_tpu.ops import predict as jpredict
 from flac_codec_tpu.ops.predict_pallas import (pallas_predict_ok,
                                                predict_batch_pallas)
 from flac_codec_tpu.parallel.batch_decode import BatchDecoder as JaxDecoder
 from flac_codec_tpu_torch.cli import main as port_main
+from flac_codec_tpu_torch.decode import Decoder
 from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
+from flac_codec_tpu_torch.errors import NotSeekable
 from flac_codec_tpu_torch.ops import predict as tpredict
 from flac_codec_tpu_torch.ops.predict_pallas import (TAP_BUCKETS, int64_rows,
                                                      predict_lpc, tap_bucket)
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
+from torch_sources import open_as  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
 
@@ -314,6 +319,7 @@ _STREAMS = {
 }
 
 
+@functools.lru_cache(maxsize=16)
 def _jax_decode(data, batch_frames, seek=None):
     dec = JaxDecoder(io.BytesIO(data), batch_frames=batch_frames)
     if seek is not None:
@@ -323,15 +329,37 @@ def _jax_decode(data, batch_frames, seek=None):
     return out
 
 
-@pytest.mark.parametrize("case", sorted(_STREAMS))
-def test_batch_decoder_matches_jax(case):
-    opts, rate, bps, channels, (frames, extra), with_total, seek = \
-        _STREAMS[case]
+def _case_stream(case):
+    """(stream, its interleaved samples, options, samples) of a case."""
+    opts, rate, bps, channels, (frames, extra), with_total, _ = _STREAMS[case]
     n = opts.block_size * frames + extra
     inter = _music(np.random.default_rng(len(case)), n, channels, bps)
     data = _stream(inter, opts, rate, bps, channels,
                    n if with_total else None)
-    with BatchDecoder(io.BytesIO(data), batch_frames=2, device="cpu") as dec:
+    return data, inter, opts, n
+
+
+# the stream as a BytesIO with the host parse under the case's own name;
+# then each kind of source a reader fills from ("bytesio" lends its
+# bytes, "file" and "unseekable" are read a MiB at a time, the second
+# refusing a seek), with the host and the device parse
+SOURCES = ("bytesio", "file", "unseekable")
+_DECODES = [pytest.param(c, "bytesio", False, id=c) for c in sorted(_STREAMS)]
+_DECODES += [pytest.param(c, src, dp, id=f"{c}-{src}-{('host', 'device')[dp]}")
+             for c in sorted(_STREAMS) for src in SOURCES for dp in (0, 1)
+             if (src, dp) != ("bytesio", 0)]
+
+
+@pytest.mark.parametrize("case,source,device_parse", _DECODES)
+def test_batch_decoder_matches_jax(case, source, device_parse, open_as):
+    _, _, _, channels, (frames, extra), with_total, seek = _STREAMS[case]
+    data, inter, opts, n = _case_stream(case)
+    with BatchDecoder(open_as(source, data), batch_frames=2, device="cpu",
+                      device_parse=bool(device_parse)) as dec:
+        if seek is not None and source == "unseekable":
+            with pytest.raises(NotSeekable):
+                dec.seek(seek)
+            seek = None
         start = 0 if seek is None else dec.seek(seek)
         got = dec.read_all_device()
         device_frames, host_frames = dec.device_frames, dec.host_frames
@@ -344,6 +372,31 @@ def test_batch_decoder_matches_jax(case):
     assert device_frames >= frames - 1 - (start // opts.block_size)
     if extra and with_total:
         assert host_frames >= 1        # the short tail
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_host_decoder_frames_then_seek_match_jax(source, open_as):
+    """``Decoder.read_frame`` (whose first Rice run fills the reader),
+    then ``seek`` back to the stream's one seek point (a new reader over
+    the same source), frame by frame as the JAX package's host decoder
+    reads them."""
+    data, _, _, _ = _case_stream("seek")
+    target = _STREAMS["seek"][-1]
+    port, ref = Decoder(open_as(source, data)), JaxHostDecoder(
+        io.BytesIO(data))
+    for _ in range(3):
+        np.testing.assert_array_equal(port.read_frame(), ref.read_frame())
+    if source == "unseekable":
+        with pytest.raises(NotSeekable):
+            port.seek(target)
+    else:
+        assert port.seek(target) == ref.seek(target) == 0
+    while True:
+        got, want = port.read_frame(), ref.read_frame()
+        if want is None:
+            assert got is None
+            break
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", sorted(MANIFEST))

@@ -16,6 +16,7 @@ from benchmark.harness import devtrace, runner
 from flac_codec_tpu_torch.encode import FlacSampleWriter, Options
 from flac_codec_tpu_torch.parallel.batch_decode import BatchDecoder
 from flac_codec_tpu_torch.utils import trace
+from torch_sources import open_as  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
 
@@ -53,10 +54,12 @@ def traced(tmp_path, monkeypatch):
     trace._records.clear()
 
 
-def _decode(data, want=None):
-    """Decode ``data`` on the CPU with the device parse, batch by batch;
-    returns the decoder (closed) and the number of read calls."""
-    dec = BatchDecoder(io.BytesIO(data), 4, None, True, device="cpu")
+def _decode(data, want=None, source=None):
+    """Decode ``data`` (from ``source``, else a ``BytesIO``) on the CPU
+    with the device parse, batch by batch; returns the decoder (closed)
+    and the number of read calls."""
+    dec = BatchDecoder(source or io.BytesIO(data), 4, None, True,
+                       device="cpu")
     calls, parts = 0, []
     while True:
         calls += 1
@@ -103,13 +106,44 @@ def test_decode_spans_carry_parents_and_request_ids(stream, traced):
                                       "decode.reconstruct")}.get(
                                           r["stage"], "decode.read")
         assert parent["stage"] in want, r
-    fills = [r for r in mine if r["stage"] == "decode.fill"]
-    assert len(fills) == 1
+    fill, = [r for r in mine if r["stage"] == "decode.fill"]
+    # the BytesIO's bytes lent from the first frame on
+    assert fill["how"] == "view"
+    assert fill["bytes"] == len(data) - first.decoder.frames_start
     selfs = [r for r in recs if r["stage"] == "decode.read.self"
              and r["req"] == first.request_id]
     assert sorted(r["span"] for r in selfs) == sorted(r["id"] for r in reads)
     for r in selfs:
         assert r["ms"] == spans[r["span"]]["self_ms"]
+
+
+@pytest.mark.parametrize("source,how", [
+    ("bytesio", "view"), ("file", "chunks"), ("unseekable", "chunks")])
+def test_one_fill_a_track_says_how(stream, traced, open_as, source, how):
+    data, pcm = stream
+    decs = [_decode(data, pcm, open_as(source, data))[0] for _ in range(2)]
+    fills = [r for r in _records(traced) if r["stage"] == "decode.fill"]
+    assert [r["req"] for r in fills] == [d.request_id for d in decs]
+    assert all(r["how"] == how and r["bytes"] > len(data) // 2
+               for r in fills)
+
+
+def test_note_adds_meta_to_the_innermost_open_span(traced, monkeypatch):
+    with pytest.raises(AssertionError):
+        trace.note("outer", lost=1)     # no span open
+    with trace.stage("outer", req=3):
+        with trace.stage("inner"):
+            trace.note("inner", how="view", bytes=5)
+            with pytest.raises(AssertionError):
+                trace.note("outer", lost=1)     # not the innermost
+        trace.note("outer", n=2)
+    trace.flush()
+    recs = {r["stage"]: r for r in _records(traced)}
+    assert (recs["inner"]["how"], recs["inner"]["bytes"]) == ("view", 5)
+    assert recs["outer"]["n"] == 2 and "how" not in recs["outer"]
+    assert not any("lost" in r for r in recs.values())
+    monkeypatch.setattr(trace, "_MODE", "")
+    trace.note("outer", lost=1)         # tracing off: nothing, no check
 
 
 def test_self_time_of_a_hand_built_tree(traced, monkeypatch):
