@@ -47,6 +47,10 @@ Two invariants make the sharing safe.
    - ``BatchDecoder._reconstruct``: the reconstruct output's ``clone()``
      (or ``.to(home)``), which the consumer's stream waits for
      (``wait_stream``) and keeps (``record_stream``);
+   - ``parallel.batch_decode.MultiStreamDecoder._batch``: the parse
+     graph's gate and the copies of ``parsed``, as above, then the index
+     copy of the reconstruct output's real rows into the call's padded
+     output, which the consumer's stream waits for at the call's end;
    - ``chip_smoke.replay_ms`` and ``profile_batches`` replay one graph
      back to back and read no output.
 

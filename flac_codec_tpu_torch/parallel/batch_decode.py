@@ -55,11 +55,27 @@ caller's, as JAX returns a fresh array.  The gate's download is the one
 synchronisation of a device-parse batch.  The CPU, and
 ``graphs=False``, run the same padded batches eagerly.
 
+:class:`MultiStreamDecoder` (the port's own; the JAX package has none)
+decodes many streams in one call into one zero-padded (streams,
+channels, samples) tensor, for a loader of short files: a
+``BatchDecoder`` batches the frames of one stream only, so a stream of
+fifty frames would cost a decoder, a scan and upload, a mostly padded
+parse and reconstruct and a gate sync of its own.  It packs whole
+frames of consecutive streams into each device-parse batch and runs the
+same scan, staging, ``ParseGraph``, gate and ``ReconstructGraph`` as
+``BatchDecoder``'s device parse, with the byte blob holding the bodies
+of several streams, then places the batch's rows by (stream, frame).
+
 Not ported: the ``FLAC_TPU_PALLAS`` / ``FLAC_TPU_NO_PALLAS`` /
 ``FLAC_TPU_DEVICE_PARSE`` switches.
 """
 
 from __future__ import annotations
+
+import collections
+import io
+import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -150,6 +166,91 @@ def _decorrelate(out: torch.Tensor, assignment: torch.Tensor,
                                       torch.where(a == 0b1010, mid_side,
                                                   out)))
     return out.to(torch.int32)
+
+
+class _Staging:
+    """The host side of a decoder's uploads: on CUDA one pinned uint8
+    buffer, reused once the copies queued out of it have left it; on the
+    CPU a new buffer each time."""
+
+    def __init__(self, cuda: bool):
+        self._cuda = cuda
+        self._buf = None
+        self._events = []
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        """A host uint8 buffer of ``nbytes``, after the wait for the last
+        copies out of it (the ``decode.stage_wait`` span)."""
+        with trace.stage("decode.stage_wait"):
+            for event in self._events:
+                event.synchronize()
+        self._events = []
+        if not self._cuda:
+            return torch.empty(nbytes, dtype=torch.uint8)
+        if self._buf is None or len(self._buf) < nbytes:
+            self._buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8,
+                                    pin_memory=True)
+        return self._buf[:nbytes]
+
+    def copied(self, stream) -> None:
+        """Note that a copy out of the buffer is queued on ``stream``."""
+        if stream is not None:
+            event = torch.cuda.Event()
+            event.record(stream)
+            self._events.append(event)
+
+
+def _body_span(scan: dict) -> tuple:
+    """The byte range of a scan's frame bodies: from the first body's
+    start to the last body's end."""
+    return (int(scan["body_off"][0]),
+            int(scan["body_off"][-1]) + int(scan["body_bytes"][-1]))
+
+
+def _write_bodies(blob: torch.Tensor, bucket: int, bodies: list) -> None:
+    """Stage ``bodies``, [(stream bytes, scan), ...], in ``blob`` for the
+    parse (``ops.framescan.upload_views`` of ``bucket`` lanes): each
+    scan's bytes from its first body to the end of its last, one scan
+    after another, and each body's lane (offset rebased onto the staged
+    bytes, bit length, assignment) in the same order.  Padding lanes and
+    the bytes past the last body are zero."""
+    data, offs, nbits, assign = (t.numpy() for t in upload_views(blob, bucket))
+    lane = base = 0
+    for view, scan in bodies:
+        lo, hi = _body_span(scan)
+        n = scan["n"]
+        offs[lane:lane + n] = scan["body_off"].astype(np.int64) - lo + base
+        nbits[lane:lane + n] = scan["body_bytes"] * 8
+        assign[lane:lane + n] = scan["assignment"]
+        data[base:base + hi - lo] = view[lo:hi]
+        lane += n
+        base += hi - lo
+    for dst, end in ((offs, lane), (nbits, lane), (assign, lane),
+                     (data, base)):
+        dst[end:] = 0
+
+
+def _parse_device(blob, bucket: int, cap: int, block_size: int,
+                  channels: int, bits: int, d, s, graphs: bool,
+                  staging: _Staging, frames: int) -> tuple:
+    """The device parse of a staged ``blob`` of ``bucket`` lanes over
+    ``cap`` bytes on device ``d`` and stream ``s``: one copy up, the
+    parse graph's replay (eager with ``graphs`` False or on the CPU),
+    and the gate's download, the one synchronisation.  Returns (parsed,
+    all_ok, order_max, fixed)."""
+    with trace.stage("decode.parse_device", frames=frames), on_stream(s):
+        if graphs and d.type == "cuda":
+            graph = parse_graph(s, bucket, cap, block_size, channels, bits)
+            graph.input.copy_(blob, non_blocking=True)
+            staging.copied(s)
+            parsed, gate = graph.replay()
+        else:
+            blob = blob.to(d, non_blocking=True)
+            staging.copied(s)
+            parsed, gate = parse_batch(blob, bucket, block_size, channels,
+                                       bits)
+        with trace.stage("decode.gate_wait"):
+            return (parsed, *gate.tolist())
 
 
 def _shard_sizes(rows: int, shards: int) -> list:
@@ -250,8 +351,7 @@ class BatchDecoder:
                               and self.mesh is None)
         # the pinned upload buffer on CUDA, and the events of its last
         # copies
-        self._staging = None
-        self._staged = []
+        self._staging = _Staging(self._cuda)
         # real frames reconstructed on the device, frames the host
         # decoded, and batches the device parse handed to the host parse
         self.device_frames = 0
@@ -337,46 +437,16 @@ class BatchDecoder:
         self.host_frames += B
         return torch.from_numpy(pcm).to(self.device), sizes
 
-    def _stage(self, nbytes: int) -> torch.Tensor:
-        """A host uint8 buffer of ``nbytes`` for one batch's upload: on
-        CUDA the decoder's pinned buffer, reused once its last copies have
-        left it (the ``decode.stage_wait`` span); on the CPU a new one."""
-        with trace.stage("decode.stage_wait", req=self.request_id):
-            for event in self._staged:
-                event.synchronize()
-        self._staged = []
-        if not self._cuda:
-            return torch.empty(nbytes, dtype=torch.uint8)
-        if self._staging is None or len(self._staging) < nbytes:
-            self._staging = torch.empty(max(nbytes, 1 << 20),
-                                        dtype=torch.uint8, pin_memory=True)
-        return self._staging[:nbytes]
-
-    def _copied(self, stream) -> None:
-        """Note that a copy out of the staging buffer is queued on
-        ``stream``."""
-        if stream is not None:
-            event = torch.cuda.Event()
-            event.record(stream)
-            self._staged.append(event)
-
     def _upload(self, view: np.ndarray, scan: dict, bucket: int):
         """Stage the batch for the parse (``ops.framescan.upload_views``
         of ``bucket`` lanes): body offsets, bit lengths, assignments,
         then the bytes from the first body to the end of the last, zero
         up to the byte capacity.  Padding lanes are all zero.  Returns
         the staged blob and the capacity."""
-        B = scan["n"]
-        off = scan["body_off"].astype(np.int64)
-        lo, hi = int(off[0]), int(off[-1]) + int(scan["body_bytes"][-1])
+        lo, hi = _body_span(scan)
         cap = byte_capacity(hi - lo)
-        blob = self._stage(16 * bucket + cap)
-        data, offs, nbits, assign = (t.numpy()
-                                     for t in upload_views(blob, bucket))
-        for dst, src in ((offs, off - lo), (nbits, scan["body_bytes"] * 8),
-                         (assign, scan["assignment"]), (data, view[lo:hi])):
-            dst[:len(src)] = src
-            dst[len(src):] = 0
+        blob = self._staging.take(16 * bucket + cap)
+        _write_bodies(blob, bucket, [(view, scan)])
         return blob, cap
 
     def _read_batch_device_parse(self):
@@ -407,21 +477,9 @@ class BatchDecoder:
         (d, s), = self._shards
         with trace.stage("decode.upload", req=self.request_id, frames=B):
             blob, cap = self._upload(view, scan, bucket)
-        with trace.stage("decode.parse_device", req=self.request_id,
-                         frames=B), on_stream(s):
-            if self.graphs and d.type == "cuda":
-                graph = parse_graph(s, bucket, cap, N, C,
-                                    si.bits_per_sample)
-                graph.input.copy_(blob, non_blocking=True)
-                self._copied(s)
-                parsed, gate = graph.replay()
-            else:
-                blob = blob.to(d, non_blocking=True)
-                self._copied(s)
-                parsed, gate = parse_batch(blob, bucket, N, C,
-                                           si.bits_per_sample)
-            with trace.stage("decode.gate_wait", req=self.request_id):
-                all_ok, order_max, fixed = gate.tolist()
+        parsed, all_ok, order_max, fixed = _parse_device(
+            blob, bucket, cap, N, C, si.bits_per_sample, d, s, self.graphs,
+            self._staging, B)
         if not all_ok:
             return "fallback"
         dec.r.pos = scan["end_bitpos"]
@@ -487,7 +545,8 @@ class BatchDecoder:
             # one staged reconstruct blob per shard of the padded batch,
             # padding rows zero
             sizes = _shard_sizes(bucket, len(self._shards))
-            host = self._stage(4 * sum(recon_len(b, C, N) for b in sizes))
+            host = self._staging.take(
+                4 * sum(recon_len(b, C, N) for b in sizes))
             host = host.view(torch.int32)
             blobs, lo, first = [], 0, 0
             for b in sizes:
@@ -534,7 +593,7 @@ class BatchDecoder:
                             dst.copy_(src)
                     else:
                         graph.input.copy_(x, non_blocking=True)
-                        self._copied(s)
+                        self._staging.copied(s)
                     part = graph.replay()[:m]
                     # the static output: copy it out (.to(home) alone
                     # would hand it out when d is home)
@@ -542,7 +601,7 @@ class BatchDecoder:
                 else:
                     if not isinstance(x, tuple):
                         x = recon_views(x.to(d, non_blocking=True), *shape)
-                        self._copied(s)
+                        self._staging.copied(s)
                     part = _device_reconstruct(*x, mode=mode,
                                                taps=taps)[:m].to(home)
             if consumer is not None:
@@ -582,3 +641,333 @@ class BatchDecoder:
             return torch.zeros((0, self.streaminfo.channels),
                                dtype=torch.int32, device=self.device)
         return torch.cat(parts)
+
+
+@dataclass(eq=False)
+class _Stream:
+    """One source of a :meth:`MultiStreamDecoder.decode` call."""
+    index: int           # its row of the output
+    fp: object           # the binary file object, seekable
+    owned: bool          # opened from a path by the call
+    start: int           # fp's position at the stream's first byte
+    decoder: Decoder
+    view: np.ndarray = None   # the frames' bytes (device format only)
+    pos: int = 0         # bit position of its next whole frame
+    whole: int = 0       # its whole frames
+    done: int = 0        # whole frames packed into device batches
+
+    @property
+    def length(self) -> int:
+        return self.decoder.total_samples
+
+
+class MultiStreamDecoder:
+    """Decode many FLAC streams on ``device`` into one zero-padded batch.
+
+    :meth:`decode` takes a list of binary file objects or paths and
+    returns ``(pcm, lengths)``: a (U, channels, max_samples) int32 tensor
+    on the device, zero past each stream's length (and past its channels,
+    where streams of fewer channels are mixed in), and a (U,) int64
+    tensor of the streams' lengths.
+
+    The call's device format is that of its first stream the device parse
+    can take: a fixed block size, at most 24 bits, a known length.  The
+    whole frames of the streams of that channel count, bit depth and
+    block size are packed in order into device batches of at most
+    ``batch_frames`` frames, a stream straddling two batches where it
+    must.  A batch is one native ``scan_frames`` a stream part, one copy
+    out of the decoder's pinned buffer, one parse graph replay (K4) and
+    gate download, one reconstruct graph replay (K3) and one device-side
+    index copy of its real rows to their (stream, frame) places, staged
+    beside its bytes.  Each stream's short last frame is decoded on the
+    host (by the native decoder, and by ``Decoder.read_frame`` where that
+    one stops), and the call's tails and lengths go up in one copy.
+
+    A stream of another format, or one whose whole frames the scan does
+    not find, is decoded alone through :class:`BatchDecoder` with the
+    device parse (``stream_fallbacks``); the streams of a batch whose
+    gate fails, alone through its host parse (``parse_fallbacks``).  So
+    the result stays exact, and a damaged stream raises what
+    ``BatchDecoder`` raises.
+
+    One request id, one profiler session and one flush of the trace a
+    call (the ``decode.streams`` span); the pinned buffer and the graphs
+    live as long as the decoder.  ``device="cuda"`` without CUDA raises,
+    as in :class:`BatchDecoder`; ``device="cpu"`` runs the same batches
+    eagerly, as ``graphs=False`` does on CUDA.  The counters below are
+    summed over calls.
+    """
+
+    def __init__(self, batch_frames: int = 256, device="cuda",
+                 graphs: bool = True):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "MultiStreamDecoder(device='cuda'): CUDA is not available")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
+        self._shard_stream, = shard_streams([self.device])
+        self.batch_frames = batch_frames
+        self.graphs = graphs
+        self._nat = native.load()
+        self._staging = _Staging(self.device.type == "cuda")
+        # streams decoded; frames reconstructed on the device and decoded
+        # on the host; device batches, and the streams each holds frames
+        # of, summed; batches whose gate failed; streams decoded alone
+        self.streams = 0
+        self.device_frames = 0
+        self.host_frames = 0
+        self.device_batches = 0
+        self.batch_streams = 0
+        self.parse_fallbacks = 0
+        self.stream_fallbacks = 0
+
+    def decode(self, sources) -> tuple:
+        """(pcm, lengths) of ``sources`` (class docstring); the call is
+        the ``decode.streams`` span."""
+        sources = list(sources)
+        req = trace.new_request()
+        with trace.profiler_session("multi-stream-decode", req), \
+                trace.stage("decode.streams", req=req, flush=True,
+                            streams=len(sources)):
+            streams = []
+            try:
+                for i, src in enumerate(sources):
+                    streams.append(self._open(i, src))
+                return self._decode(streams)
+            finally:
+                for st in streams:
+                    if st.owned:
+                        st.fp.close()
+
+    def _open(self, index: int, src) -> _Stream:
+        """A stream's metadata, and the rest of it as one buffer (the
+        ``decode.fill`` span) where it can take the device parse (the
+        ``decode.open`` span)."""
+        with trace.stage("decode.open"):
+            owned = isinstance(src, (str, bytes, os.PathLike))
+            fp = open(src, "rb") if owned else src
+            try:
+                if not fp.seekable():
+                    fp = io.BytesIO(fp.read())
+                st = _Stream(index, fp, owned, fp.tell(), Decoder(fp))
+            except BaseException:
+                if owned:
+                    fp.close()
+                raise
+            si = st.decoder.streaminfo
+            if (si.minimum_block_size == si.maximum_block_size > 0
+                    and si.bits_per_sample <= 24 and st.length is not None):
+                st.view = st.decoder.r.np_view()
+                st.pos = st.decoder.r.pos
+                st.whole = st.length // si.maximum_block_size
+            return st
+
+    @staticmethod
+    def _format(st: _Stream) -> tuple:
+        si = st.decoder.streaminfo
+        return si.channels, si.bits_per_sample, si.maximum_block_size
+
+    def _decode(self, streams: list) -> tuple:
+        self.streams += len(streams)
+        fmt = next((self._format(st) for st in streams
+                    if st.view is not None), None)
+        device = [st for st in streams
+                  if st.view is not None and self._format(st) == fmt]
+        chosen = set(device)
+        alone = {st.index: self._alone(st, True) for st in streams
+                 if st not in chosen}
+        U = len(streams)
+        C = max([st.decoder.streaminfo.channels for st in streams],
+                default=0)
+        S = max([st.length for st in device]
+                + [len(x) for x in alone.values()], default=0)
+        pcm = torch.zeros((U, C, S), dtype=torch.int32, device=self.device)
+        for u, x in alone.items():
+            pcm[u, :x.shape[1], :len(x)] = x.T
+        redo = {}     # stream -> decode it with the device parse
+        s = self._shard_stream
+        consumer = (torch.cuda.current_stream(self.device)
+                    if s is not None else None)
+        if s is not None:
+            s.wait_stream(consumer)
+        pending = collections.deque(st for st in device if st.whole)
+        while pending:
+            with trace.stage("decode.read", self_record=True):
+                self._batch(pending, redo, pcm, fmt)
+        if s is not None:
+            consumer.wait_stream(s)
+        tails = []
+        for st in device:
+            if st not in redo and st.length > st.whole * fmt[2]:
+                frame = self._tail(st)
+                if frame is None:
+                    redo[st] = True
+                else:
+                    tails.append((st, frame))
+        lengths = [len(alone[st.index]) if st.index in alone else st.length
+                   for st in streams]
+        with trace.stage("decode.place", tails=len(tails)):
+            lengths = self._place(pcm, lengths, tails, fmt[2] if fmt else 0)
+        for st, device_parse in redo.items():
+            x = self._alone(st, device_parse)
+            pcm[st.index, :x.shape[1], :len(x)] = x.T
+        return pcm, lengths
+
+    def _batch(self, pending, redo: dict, pcm: torch.Tensor,
+               fmt: tuple) -> None:
+        """Pack the next batch from ``pending`` streams, parse and
+        reconstruct it, and place its rows in ``pcm``.  Streams whose
+        frames the scan does not find, and the streams of a batch whose
+        gate fails, go to ``redo``."""
+        C, bits, N = fmt
+        parts, n = [], 0
+        with trace.stage("decode.scan"):
+            while pending and n < self.batch_frames:
+                st = pending[0]
+                want = min(st.whole - st.done, self.batch_frames - n)
+                si = st.decoder.streaminfo
+                scan = self._nat.scan_frames(
+                    st.view, st.pos, want, si.sample_rate, C, bits, N,
+                    st.length - st.done * N)
+                if scan["n"] < want or not scan["body_bytes"].all():
+                    # a short or empty body: BatchDecoder's host parse
+                    # raises its error
+                    redo[st] = True
+                    pending.popleft()
+                    continue
+                parts.append((st, scan, st.done))
+                st.pos = scan["end_bitpos"]
+                st.done += want
+                n += want
+                if st.done == st.whole:
+                    pending.popleft()
+            trace.note("decode.scan", frames=n, parts=len(parts))
+        if not parts:
+            return
+        bucket = frame_bucket(n, self.batch_frames)
+        d, s = self.device, self._shard_stream
+        with trace.stage("decode.upload", frames=n):
+            blob, cap, where = self._upload(parts, bucket)
+        parsed, all_ok, order_max, fixed = _parse_device(
+            blob, bucket, cap, N, C, bits, d, s, self.graphs, self._staging,
+            n)
+        if not all_ok:
+            self.parse_fallbacks += 1
+            for st, _, _ in parts:
+                redo[st] = False
+            if pending and pending[0] is parts[-1][0]:
+                pending.popleft()
+            return
+        mode = "fixed" if fixed else "lpc"
+        taps = 32 if fixed else tap_bucket(order_max)
+        shape = (bucket, C, N)
+        x = tuple(parsed[k] for k in RECON_KEYS)
+        with trace.stage("decode.reconstruct", frames=n, mode=mode), \
+                on_stream(s):
+            if self.graphs and d.type == "cuda":
+                graph = reconstruct_graph(s, shape, mode, taps)
+                for dst, src in zip(recon_views(graph.input, *shape), x):
+                    dst.copy_(src)
+                out = graph.replay()
+            else:
+                out = _device_reconstruct(*x, mode=mode, taps=taps)
+            # the real rows to their (stream, frame) places, read on the
+            # graph's stream before its next replay
+            U, Cs, S = pcm.shape
+            rows = pcm.as_strided((U, S // N, C, N), (Cs * S, N, S, 1))
+            where = where.to(d, non_blocking=True).view(torch.int64)
+            self._staging.copied(s)
+            rows.index_put_((where[:n], where[bucket:bucket + n]), out[:n])
+        self.device_frames += n
+        self.device_batches += 1
+        self.batch_streams += len(parts)
+
+    def _upload(self, parts: list, bucket: int) -> tuple:
+        """Stage a batch of stream ``parts``, [(stream, scan, first
+        frame), ...], in the pinned buffer: the parse's blob (the bodies
+        of every part, :func:`_write_bodies`) and after it each lane's
+        stream and frame (2 x ``bucket`` int64).  Returns (blob, byte
+        capacity, places)."""
+        cap = byte_capacity(sum(hi - lo for lo, hi in
+                                (_body_span(scan) for _, scan, _ in parts)))
+        head = 16 * bucket + cap
+        host = self._staging.take(head + 16 * bucket)
+        blob, where = host[:head], host[head:]
+        _write_bodies(blob, bucket, [(st.view, scan) for st, scan, _ in parts])
+        u, f = where.view(torch.int64).numpy().reshape(2, bucket)
+        lane = 0
+        for st, scan, first in parts:
+            k = scan["n"]
+            u[lane:lane + k] = st.index
+            f[lane:lane + k] = np.arange(first, first + k)
+            lane += k
+        return blob, cap, where
+
+    def _tail(self, st: _Stream):
+        """The stream's short last frame, (channels, samples) int32, on
+        the host (the ``decode.host_frame`` span): the native decoder's,
+        as ``BatchDecoder``'s bulk host path decodes frames of any size,
+        and where it stops, the host decoder's (``Decoder.read_frame``),
+        which raises the precise error for a bad frame.  None where the
+        frame is not the stream's last samples."""
+        dec = st.decoder
+        si = dec.streaminfo
+        done = st.whole * si.maximum_block_size
+        left = st.length - done
+        with trace.stage("decode.host_frame"):
+            out, sizes, _, _ = self._nat.decode_frames(
+                st.view, st.pos, 1, si.sample_rate, si.channels,
+                si.bits_per_sample, si.maximum_block_size, left, nthreads=1)
+            if len(sizes) == 1 and sizes[0] == left:
+                frame = out.reshape(left, si.channels).T
+            else:
+                dec.r.pos, dec.current_sample = st.pos, done
+                frame = dec.read_frame()
+                if frame is None or dec.current_sample != st.length:
+                    return None
+        self.host_frames += 1
+        return frame
+
+    def _place(self, pcm: torch.Tensor, lengths: list, tails: list,
+               block: int) -> torch.Tensor:
+        """Upload the call's ``lengths`` and ``tails``, [(stream, frame),
+        ...], in one copy, and put each tail after its stream's whole
+        frames of ``block`` samples in ``pcm``; returns the lengths on the
+        device."""
+        U, Cs, S = pcm.shape
+        T = sum(f.size for _, f in tails)
+        host = self._staging.take(8 * U + 12 * T)
+        host[:8 * U].view(torch.int64).numpy()[:] = lengths
+        idx = host[8 * U:8 * (U + T)].view(torch.int64).numpy()
+        vals = host[8 * (U + T):].view(torch.int32).numpy()
+        lo = 0
+        for st, frame in tails:
+            c, t = frame.shape
+            base = st.index * Cs * S + st.whole * block
+            idx[lo:lo + c * t] = (np.arange(c)[:, None] * S
+                                  + np.arange(t) + base).reshape(-1)
+            vals[lo:lo + c * t] = frame.reshape(-1)
+            lo += c * t
+        dev = host.to(self.device, non_blocking=True)
+        self._staging.copied(torch.cuda.current_stream(self.device)
+                             if self.device.type == "cuda" else None)
+        if T:
+            pcm.view(-1).index_put_(
+                (dev[8 * U:8 * (U + T)].view(torch.int64),),
+                dev[8 * (U + T):].view(torch.int32))
+        return dev[:8 * U].view(torch.int64)
+
+    def _alone(self, st: _Stream, device_parse: bool) -> torch.Tensor:
+        """The whole stream through a :class:`BatchDecoder` of its own,
+        (samples, channels) int32 on the device."""
+        self.stream_fallbacks += device_parse
+        st.fp.seek(st.start)
+        dec = BatchDecoder(st.fp, self.batch_frames, None, device_parse,
+                           device=self.device, graphs=self.graphs)
+        try:
+            return dec.read_all_device()
+        finally:
+            dec.close()
+            self.device_frames += dec.device_frames
+            self.host_frames += dec.host_frames

@@ -935,6 +935,33 @@ def test_decode_graphs_and_eager_give_the_same_pcm(dev, bps, rate,
     assert np.array_equal(got.cpu().numpy().reshape(-1), inter)
 
 
+@pytest.mark.parametrize("bps", [16, 24])
+def test_multi_stream_graphs_and_eager_give_the_same_pcm(dev, bps):
+    """Three streams of 9, 9 and 3 whole frames (and a host tail each)
+    in batches of 4: 6 device batches, each one parse and one
+    reconstruct replay; graph replays, ``graphs=False`` and the inputs
+    agree, and the padding is zero."""
+    clips = [_stereo_clip(bps, frames) for frames in (9, 9, 3)]
+    data = [_encode_on(FlacSampleWriter, inter, n, bps, 44100)
+            for inter, n in clips]
+    before = _decode_replays()
+    dec = tbd.MultiStreamDecoder(4, device=dev)
+    got, lengths = dec.decode([io.BytesIO(d) for d in data])
+    replayed = _decode_replayed(before)
+    eager, eager_lengths = tbd.MultiStreamDecoder(
+        4, device=dev, graphs=False).decode([io.BytesIO(d) for d in data])
+    assert replayed == {"parse": 6, "reconstruct": 6}
+    assert (dec.device_batches, dec.batch_streams, dec.host_frames) == \
+        (6, 8, 3)
+    assert got.device.type == "cuda" and torch.equal(got, eager)
+    assert torch.equal(lengths, eager_lengths)
+    for u, (inter, n) in enumerate(clips):
+        assert int(lengths[u]) == n
+        assert np.array_equal(got[u, :, :n].T.cpu().numpy().reshape(-1),
+                              inter)
+        assert not got[u, :, n:].any()
+
+
 def test_decode_graphs_two_shards_on_one_card(dev):
     """cuda:0 listed twice: a reconstruct graph per shard stream; the
     1-frame batch's second shard holds only padding and is skipped."""
