@@ -88,13 +88,18 @@ class Native:
             ctypes.c_uint32, ctypes.c_uint64,
             i32p, u8p, i8p, u8p, i32p, u8p, u32p,
             ctypes.POINTER(ctypes.c_uint64), u32p]
-        lib.nat_scan_frames.restype = ctypes.c_int64
-        lib.nat_scan_frames.argtypes = [
-            u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint64,
-            u64p, u32p, u8p, u32p,
-            ctypes.POINTER(ctypes.c_uint64), u32p]
+        for scan in (lib.nat_scan_frames, lib.nat_scan_frames_portable):
+            scan.restype = ctypes.c_int64
+            scan.argtypes = [
+                u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.c_uint32, ctypes.c_uint64,
+                u64p, u32p, u8p, u32p,
+                ctypes.POINTER(ctypes.c_uint64), u32p]
+        lib.nat_scan_simd.restype = ctypes.c_int32
+        lib.nat_scan_simd.argtypes = []
+        # whether scan_frames takes the one-pass AVX2 and PCLMUL scan here
+        self.scan_simd = bool(lib.nat_scan_simd())
         lib.nat_decode_frames.restype = ctypes.c_int64
         lib.nat_decode_frames.argtypes = [
             u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32,
@@ -329,7 +334,25 @@ class Native:
         """Frame-boundary scan for the device-parse pipeline: per-frame
         body byte ranges + assignment, CRC-8/16 validated, residuals NOT
         decoded (the device does that).  Returns a dict; ``n`` frames
-        found, ``error`` the DEC_* stop reason."""
+        found, ``error`` the DEC_* stop reason.  ``scan_simd`` says whether
+        it takes the one-pass AVX2 and PCLMUL search."""
+        return self._scan(self._lib.nat_scan_frames, buf,
+                          start_bitpos, n_frames, sample_rate, channels, bps,
+                          block_size, remaining_samples)
+
+    def scan_frames_portable(self, buf: np.ndarray, start_bitpos: int,
+                             n_frames: int, sample_rate: int, channels: int,
+                             bps: int, block_size: int, remaining_samples):
+        """:meth:`scan_frames` through the portable loop on any host (a
+        ``memchr`` for every 0xFF, each CRC-16 from the frame's start),
+        to hold the SIMD scan against."""
+        return self._scan(self._lib.nat_scan_frames_portable, buf,
+                          start_bitpos, n_frames, sample_rate, channels, bps,
+                          block_size, remaining_samples)
+
+    @staticmethod
+    def _scan(fn, buf, start_bitpos, n_frames, sample_rate,
+              channels, bps, block_size, remaining_samples):
         body_off = np.zeros(n_frames, dtype=np.uint64)
         body_bytes = np.zeros(n_frames, dtype=np.uint32)
         assignment = np.zeros(n_frames, dtype=np.uint8)
@@ -341,7 +364,7 @@ class Native:
         def p(a, ct):
             return a.ctypes.data_as(ctypes.POINTER(ct))
 
-        n = self._lib.nat_scan_frames(
+        n = fn(
             p(buf, ctypes.c_uint8), len(buf), start_bitpos, n_frames,
             sample_rate, channels, bps, block_size, rem,
             p(body_off, ctypes.c_uint64), p(body_bytes, ctypes.c_uint32),

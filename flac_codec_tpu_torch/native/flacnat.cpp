@@ -10,7 +10,8 @@
 // Build: g++ -O3 -shared -fPIC flacnat.cpp -o libflacnat.so
 // Exposed via ctypes (see build.py); pure C ABI, no pybind11.
 //
-// The SIMD fast paths (AVX2 paired predictor, PCLMUL CRC-16) are compiled
+// The SIMD fast paths (AVX2 paired predictor, PCLMUL CRC-16, the AVX2 and
+// PCLMUL pass of the frame scan) are compiled
 // unconditionally via per-function target attributes and selected at
 // runtime with __builtin_cpu_supports, so one portable -O3 binary is safe
 // to copy between x86-64 hosts (no -march=native in the artifact).
@@ -84,9 +85,13 @@ static uint32_t crc16_table(const uint8_t* data, size_t n, uint32_t crc);
 // Folds the message 128 bits at a time: with the running 128-bit state V
 // split as Vh*x^64 + Vl, appending a block B gives
 //   V' = Vh*(x^192 mod P) ^ Vl*(x^128 mod P) ^ B
-// (both products are 64x16-bit carry-less multiplies, < 2^80).  The final
-// 16 state bytes plus any tail run through the table path.  Constants are
-// derived at static-init time so no magic numbers can rot.
+// (both products are 64x16-bit carry-less multiplies, < 2^80).  A long
+// message first runs four such chains side by side, 64 bytes a step:
+// the message so far is A0*x^384 ^ A1*x^256 ^ A2*x^128 ^ A3 (mod P), and
+// each Ai folds by x^512 and takes its own 16 bytes, so no chain waits on
+// another; the merge folds A0..A2 down onto A3.  The final 16 state bytes
+// plus any tail run through the table path.  Constants are derived at
+// static-init time so no magic numbers can rot.
 // (reference CRC definition: src/crc.rs:155-180)
 static uint64_t xpow_mod_p16(unsigned deg) {
     uint32_t r = 1;  // x^0
@@ -98,32 +103,85 @@ static uint64_t xpow_mod_p16(unsigned deg) {
 }
 static const uint64_t CRC16_K128 = xpow_mod_p16(128);
 static const uint64_t CRC16_K192 = xpow_mod_p16(192);
+static const uint64_t CRC16_K256 = xpow_mod_p16(256);
+static const uint64_t CRC16_K320 = xpow_mod_p16(320);
+static const uint64_t CRC16_K384 = xpow_mod_p16(384);
+static const uint64_t CRC16_K448 = xpow_mod_p16(448);
+static const uint64_t CRC16_K512 = xpow_mod_p16(512);
+static const uint64_t CRC16_K576 = xpow_mod_p16(576);
+// shortest message that takes the four chains
+static const size_t CRC16_FOLD4_MIN = 128;
+
+// 16 message bytes as a 128-bit polynomial, the first byte highest
+__attribute__((target("pclmul,ssse3")))
+static inline __m128i crc16_load(const uint8_t* p) {
+    const __m128i rev = _mm_set_epi8(0, 1, 2, 3, 4, 5, 6, 7,
+                                     8, 9, 10, 11, 12, 13, 14, 15);
+    return _mm_shuffle_epi8(_mm_loadu_si128((const __m128i*)p), rev);
+}
+
+// A*x^d mod P up to congruence, as Ah*(x^(d+64) mod P) ^ Al*(x^d mod P),
+// K holding (x^d mod P, x^(d+64) mod P) as its (high, low) halves
+__attribute__((target("pclmul,ssse3")))
+static inline __m128i crc16_fold(__m128i A, __m128i K) {
+    return _mm_xor_si128(_mm_clmulepi64_si128(A, K, 0x01),
+                         _mm_clmulepi64_si128(A, K, 0x10));
+}
+
+static inline __m128i crc16_k(uint64_t d, uint64_t d64) {
+    return _mm_set_epi64x((long long)d, (long long)d64);
+}
+
+// the four chains take 64 more bytes
+__attribute__((target("pclmul,ssse3")))
+static inline void crc16_fold4(__m128i (&a)[4], const uint8_t* p) {
+    const __m128i K = crc16_k(CRC16_K512, CRC16_K576);
+    for (int i = 0; i < 4; i++)
+        a[i] = _mm_xor_si128(crc16_fold(a[i], K), crc16_load(p + 16 * i));
+}
+
+// one 128-bit state congruent to the four chains' message
+__attribute__((target("pclmul,ssse3")))
+static inline __m128i crc16_merge4(const __m128i (&a)[4]) {
+    return _mm_xor_si128(
+        _mm_xor_si128(crc16_fold(a[0], crc16_k(CRC16_K384, CRC16_K448)),
+                      crc16_fold(a[1], crc16_k(CRC16_K256, CRC16_K320))),
+        _mm_xor_si128(crc16_fold(a[2], crc16_k(CRC16_K128, CRC16_K192)),
+                      a[3]));
+}
+
+// the CRC register after a message congruent to the state A
+__attribute__((target("pclmul,ssse3")))
+static inline uint32_t crc16_state(__m128i A) {
+    const __m128i rev = _mm_set_epi8(0, 1, 2, 3, 4, 5, 6, 7,
+                                     8, 9, 10, 11, 12, 13, 14, 15);
+    uint8_t tmp[16];
+    _mm_storeu_si128((__m128i*)tmp, _mm_shuffle_epi8(A, rev));
+    return crc16_table(tmp, 16, 0);
+}
 
 __attribute__((target("pclmul,ssse3")))
 static uint32_t crc16_clmul(const uint8_t* data, size_t n, uint32_t crc) {
-    const __m128i rev = _mm_set_epi8(0, 1, 2, 3, 4, 5, 6, 7,
-                                     8, 9, 10, 11, 12, 13, 14, 15);
-    const __m128i K = _mm_set_epi64x((long long)CRC16_K128,
-                                     (long long)CRC16_K192);
-    __m128i A = _mm_shuffle_epi8(
-        _mm_loadu_si128((const __m128i*)data), rev);
     // prior crc rides the top 16 bits of the first block
-    A = _mm_xor_si128(A, _mm_set_epi64x((long long)((uint64_t)crc << 48), 0));
-    data += 16;
-    n -= 16;
-    while (n >= 16) {
-        __m128i B = _mm_shuffle_epi8(
-            _mm_loadu_si128((const __m128i*)data), rev);
-        __m128i h = _mm_clmulepi64_si128(A, K, 0x01);  // Ah * K192
-        __m128i l = _mm_clmulepi64_si128(A, K, 0x10);  // Al * K128
-        A = _mm_xor_si128(_mm_xor_si128(h, l), B);
+    const __m128i prior = _mm_set_epi64x((long long)((uint64_t)crc << 48), 0);
+    const __m128i K = crc16_k(CRC16_K128, CRC16_K192);
+    __m128i A;
+    if (n >= CRC16_FOLD4_MIN) {
+        __m128i a[4];
+        for (int i = 0; i < 4; i++) a[i] = crc16_load(data + 16 * i);
+        a[0] = _mm_xor_si128(a[0], prior);
+        data += 64;
+        n -= 64;
+        for (; n >= 64; data += 64, n -= 64) crc16_fold4(a, data);
+        A = crc16_merge4(a);
+    } else {
+        A = _mm_xor_si128(crc16_load(data), prior);
         data += 16;
         n -= 16;
     }
-    uint8_t tmp[16];
-    _mm_storeu_si128((__m128i*)tmp, _mm_shuffle_epi8(A, rev));
-    uint32_t c = crc16_table(tmp, 16, 0);
-    return crc16_table(data, n, c);
+    for (; n >= 16; data += 16, n -= 16)
+        A = _mm_xor_si128(crc16_fold(A, K), crc16_load(data));
+    return crc16_table(data, n, crc16_state(A));
 }
 #endif  // FLACNAT_X86
 
@@ -2327,14 +2385,135 @@ extern "C" {
 // passing CRC-16, and any miss falls back to the exact sequential path.
 // Per frame outputs: body byte offset (after the header), body length
 // excluding the 2 CRC-16 bytes, channel assignment, block size.
-int64_t nat_scan_frames(
+
+// The stream's format, which a candidate's header must match.
+struct ScanFmt { uint32_t sample_rate, channels, bps, block_size; };
+
+// True iff byte c starts a frame header that parses and matches fmt.
+static inline bool scan_header_at(const uint8_t* buf, uint64_t buf_bytes,
+                                  uint64_t c, const ScanFmt& fmt) {
+    FastBits h;
+    h.init(buf, buf_bytes, c * 8);
+    FrameHdr nh;
+    return parse_frame_header(h, buf, c, fmt.sample_rate, fmt.bps, &nh)
+               == DEC_OK
+           && nh.rate == fmt.sample_rate && nh.ch_count == fmt.channels
+           && nh.bps == fmt.bps && nh.block_size <= fmt.block_size;
+}
+
+// The end of the frame at pos, whose header ends at hdr_end: the first
+// sync after the header that starts a matching header and closes a span
+// [pos, end) of CRC-16 residue 0.  0 when no candidate does, or after 17
+// that fail the CRC (a corrupt region: the host path).  The portable
+// loop: a memchr for every 0xFF, each CRC from the frame's start.
+static uint64_t frame_end_portable(const uint8_t* buf, uint64_t buf_bytes,
+                                   uint64_t pos, uint64_t hdr_end,
+                                   const ScanFmt& fmt) {
+    uint32_t tries = 0;
+    const uint8_t* p = buf + hdr_end;
+    const uint8_t* const scan_end = buf + buf_bytes - 1;
+    while (p < scan_end) {
+        p = (const uint8_t*)memchr(p, 0xFF, scan_end - p);
+        if (!p) break;
+        uint64_t cand = (uint64_t)(p - buf);
+        if ((p[1] & 0xFE) == 0xF8 && scan_header_at(buf, buf_bytes, cand,
+                                                    fmt)) {
+            if (nat_crc16(buf + pos, cand - pos, 0) == 0) return cand;
+            if (++tries > 16) return 0;
+        }
+        p++;
+    }
+    return 0;
+}
+
+#if defined(FLACNAT_X86)
+// Bit i set iff p[i] == 0xFF and p[i + 1] & 0xFE == 0xF8 (a 15-bit
+// sync), for i < 32; reads p[0..32].
+__attribute__((target("avx2")))
+static inline uint32_t sync_mask32(const uint8_t* p) {
+    const __m256i x = _mm256_loadu_si256((const __m256i*)p);
+    const __m256i y = _mm256_loadu_si256((const __m256i*)(p + 1));
+    const __m256i hit = _mm256_and_si256(
+        _mm256_cmpeq_epi8(x, _mm256_set1_epi8((char)0xFF)),
+        _mm256_cmpeq_epi8(_mm256_and_si256(y, _mm256_set1_epi8((char)0xFE)),
+                          _mm256_set1_epi8((char)0xF8)));
+    return (uint32_t)_mm256_movemask_epi8(hit);
+}
+
+// frame_end_portable's result in one pass over the frame: 64 bytes a
+// step, the syncs tested in registers and the bytes folded into four
+// CRC chains.  A candidate's residue is the CRC of the folded prefix
+// [pos, b) carried over [b, cand) by the table, never re-read from pos.
+// The pass asks for the bytes SCAN_PREFETCH ahead of it, across the
+// 4 KiB pages where the hardware's stream prefetch stops.
+static const uint64_t SCAN_PREFETCH = 2048;
+
+__attribute__((target("avx2,pclmul,ssse3")))
+static uint64_t frame_end_simd(const uint8_t* buf, uint64_t buf_bytes,
+                               uint64_t pos, uint64_t hdr_end,
+                               const ScanFmt& fmt) {
+    __m128i a[4];
+    for (int i = 0; i < 4; i++) a[i] = _mm_setzero_si128();
+    uint32_t tries = 0;
+    uint64_t b = pos;
+    // whole blocks: a block's last position reads the byte after it
+    while (b + 65 <= buf_bytes) {
+        // fold the blocks that hold no sync (a tight loop: no calls)
+        uint64_t m = 0;
+        for (; b + 65 <= buf_bytes; b += 64) {
+            if (b + SCAN_PREFETCH < buf_bytes)
+                _mm_prefetch((const char*)(buf + b + SCAN_PREFETCH),
+                             _MM_HINT_T0);
+            m = sync_mask32(buf + b)
+                | (uint64_t)sync_mask32(buf + b + 32) << 32;
+            if (b < hdr_end)
+                m &= hdr_end - b < 64 ? ~0ull << (hdr_end - b) : 0;
+            if (m) break;
+            crc16_fold4(a, buf + b);
+        }
+        if (!m) break;
+        const uint32_t prefix = crc16_state(crc16_merge4(a));
+        for (; m; m &= m - 1) {
+            uint64_t cand = b + (uint64_t)__builtin_ctzll(m);
+            if (!scan_header_at(buf, buf_bytes, cand, fmt)) continue;
+            if (crc16_table(buf + b, cand - b, prefix) == 0) return cand;
+            if (++tries > 16) return 0;
+        }
+        crc16_fold4(a, buf + b);
+        b += 64;
+    }
+    // the last 0-64 bytes, a position at a time
+    const uint32_t prefix = crc16_state(crc16_merge4(a));
+    for (uint64_t cand = b > hdr_end ? b : hdr_end; cand + 1 < buf_bytes;
+         cand++) {
+        if (buf[cand] != 0xFF || (buf[cand + 1] & 0xFE) != 0xF8
+            || !scan_header_at(buf, buf_bytes, cand, fmt))
+            continue;
+        if (crc16_table(buf + b, cand - b, prefix) == 0) return cand;
+        if (++tries > 16) return 0;
+    }
+    return 0;
+}
+#endif  // FLACNAT_X86
+
+// Whether this host takes frame_end_simd (AVX2 and PCLMUL).
+static bool scan_simd_host() {
+#if defined(FLACNAT_X86)
+    return cpu_has_avx2() && cpu_has_clmul();
+#else
+    return false;
+#endif
+}
+
+static int64_t scan_frames(
     const uint8_t* buf, uint64_t buf_bytes, uint64_t start_bitpos,
     uint32_t n_frames, uint32_t sample_rate, uint32_t channels, uint32_t bps,
     uint32_t block_size, uint64_t remaining_samples,
     uint64_t* body_off, uint32_t* body_bytes,
     uint8_t* out_assignment, uint32_t* out_block,
-    uint64_t* end_bitpos, uint32_t* error) {
+    uint64_t* end_bitpos, uint32_t* error, bool simd) {
     if (!tables_ready) init_tables();
+    const ScanFmt fmt = {sample_rate, channels, bps, block_size};
     uint64_t pos = start_bitpos >> 3;
     *error = DEC_OK;
     int64_t found = 0;
@@ -2369,31 +2548,14 @@ int64_t nat_scan_frames(
 
         // locate the frame end: next validated header candidate whose
         // span passes the CRC-16 residue check, else the buffer end
-        uint64_t end = 0;
-        uint32_t tries = 0;
-        const uint8_t* p = buf + hdr_end;
-        const uint8_t* const scan_end = buf + buf_bytes - 1;
-        while (p < scan_end) {
-            p = (const uint8_t*)memchr(p, 0xFF, scan_end - p);
-            if (!p) break;
-            if ((p[1] & 0xFE) == 0xF8) {
-                FastBits h;
-                h.init(buf, buf_bytes, (uint64_t)(p - buf) * 8);
-                FrameHdr nh;
-                if (parse_frame_header(h, buf, p - buf, sample_rate, bps,
-                                       &nh) == DEC_OK
-                    && nh.rate == sample_rate && nh.ch_count == channels
-                    && nh.bps == bps && nh.block_size <= block_size) {
-                    uint64_t cand = (uint64_t)(p - buf);
-                    if (nat_crc16(buf + pos, cand - pos, 0) == 0) {
-                        end = cand;
-                        break;
-                    }
-                    if (++tries > 16) break;  // corrupt region: host path
-                }
-            }
-            p++;
-        }
+#if defined(FLACNAT_X86)
+        uint64_t end = simd
+            ? frame_end_simd(buf, buf_bytes, pos, hdr_end, fmt)
+            : frame_end_portable(buf, buf_bytes, pos, hdr_end, fmt);
+#else
+        (void)simd;
+        uint64_t end = frame_end_portable(buf, buf_bytes, pos, hdr_end, fmt);
+#endif
         if (end == 0) {
             // stream-end candidate (last frame in the buffer)
             if (buf_bytes - pos >= 12
@@ -2415,6 +2577,39 @@ int64_t nat_scan_frames(
     *end_bitpos = pos * 8;
     return found;
 }
+
+// The scan, in one SIMD pass a frame where the host has AVX2 and PCLMUL
+// (nat_scan_simd), else in the portable loop.
+int64_t nat_scan_frames(
+    const uint8_t* buf, uint64_t buf_bytes, uint64_t start_bitpos,
+    uint32_t n_frames, uint32_t sample_rate, uint32_t channels, uint32_t bps,
+    uint32_t block_size, uint64_t remaining_samples,
+    uint64_t* body_off, uint32_t* body_bytes,
+    uint8_t* out_assignment, uint32_t* out_block,
+    uint64_t* end_bitpos, uint32_t* error) {
+    return scan_frames(buf, buf_bytes, start_bitpos, n_frames, sample_rate,
+                       channels, bps, block_size, remaining_samples,
+                       body_off, body_bytes, out_assignment, out_block,
+                       end_bitpos, error, scan_simd_host());
+}
+
+// The same scan in the portable loop on every host, to hold the SIMD
+// pass against.
+int64_t nat_scan_frames_portable(
+    const uint8_t* buf, uint64_t buf_bytes, uint64_t start_bitpos,
+    uint32_t n_frames, uint32_t sample_rate, uint32_t channels, uint32_t bps,
+    uint32_t block_size, uint64_t remaining_samples,
+    uint64_t* body_off, uint32_t* body_bytes,
+    uint8_t* out_assignment, uint32_t* out_block,
+    uint64_t* end_bitpos, uint32_t* error) {
+    return scan_frames(buf, buf_bytes, start_bitpos, n_frames, sample_rate,
+                       channels, bps, block_size, remaining_samples,
+                       body_off, body_bytes, out_assignment, out_block,
+                       end_bitpos, error, false);
+}
+
+// 1 iff nat_scan_frames takes the SIMD pass on this host.
+int32_t nat_scan_simd() { return scan_simd_host() ? 1 : 0; }
 
 static int64_t parse_frames_raw_seq(
     const uint8_t* buf, uint64_t buf_bytes, uint64_t start_bitpos,

@@ -467,6 +467,7 @@ class BatchDecoder:
             scan = self._nat.scan_frames(
                 view, dec.r.pos, self.batch_frames, si.sample_rate,
                 si.channels, si.bits_per_sample, self.block_size, remaining)
+            trace.note("decode.scan", simd=self._nat.scan_simd)
         B = scan["n"]
         # an empty body would look like a padding lane to the gate: the
         # host parse raises its error
@@ -842,7 +843,8 @@ class MultiStreamDecoder:
                 n += want
                 if st.done == st.whole:
                     pending.popleft()
-            trace.note("decode.scan", frames=n, parts=len(parts))
+            trace.note("decode.scan", frames=n, parts=len(parts),
+                       simd=self._nat.scan_simd)
         if not parts:
             return
         bucket = frame_bucket(n, self.batch_frames)
