@@ -40,17 +40,18 @@ Two invariants make the sharing safe.
 
    - ``parallel.batch.BatchEncoder._dispatch_batch``: the copies of
      every plan leaf into the batch's pinned host buffers, then an event;
-   - ``parallel.batch_decode.BatchDecoder._read_batch_device_parse``:
-     the parse graph's ``gate.tolist()`` (synchronous), then, in
-     ``_reconstruct``, the copies of ``parsed`` into the reconstruct
-     graph's static input, before the reconstruct replay;
-   - ``BatchDecoder._reconstruct``: the reconstruct output's ``clone()``
-     (or ``.to(home)``), which the consumer's stream waits for
-     (``wait_stream``) and keeps (``record_stream``);
-   - ``parallel.batch_decode.MultiStreamDecoder._batch``: the parse
-     graph's gate and the copies of ``parsed``, as above, then the index
-     copy of the reconstruct output's real rows into the call's padded
-     output, which the consumer's stream waits for at the call's end;
+   - ``parallel.batch_decode._device_parse_batch``, the device-parse
+     batch of both decoders: the parse graph's ``gate.tolist()``
+     (synchronous), then the copies of ``parsed`` into the reconstruct
+     graph's static input (``_replay_reconstruct``), before the
+     reconstruct replay, then the caller's ``take`` of the real rows:
+   - ``BatchDecoder._take``: the reconstruct output's ``clone()`` (or
+     ``.to(home)``), which the consumer's stream waits for
+     (``wait_stream``) and keeps (``record_stream``), for the device
+     parse and for each shard of the host parse;
+   - ``MultiStreamDecoder._batch``'s ``place``: the index copy of the
+     reconstruct output's real rows into the call's padded output, which
+     the consumer's stream waits for at the call's end;
    - ``chip_smoke.replay_ms`` and ``profile_batches`` replay one graph
      back to back and read no output.
 

@@ -2731,6 +2731,11 @@ static int64_t parse_frames_raw_seq(
         if (remaining_samples != ~0ull) remaining_samples -= fr_block;
         decoded++;
     }
+    // on any stop reason, report the failed frame's start (as
+    // nat_decode_frames does), so that the caller's host decoder raises
+    // that frame's error instead of stepping past it (a CRC-16 failure
+    // used to leave the position after the bad frame)
+    if (*error != DEC_OK) g.set_pos(frame_start_byte * 8);
     *end_bitpos = g.pos();
     return decoded;
 }

@@ -5,69 +5,53 @@ path.  The native engine parses and CRC-checks a batch of frames on the
 host and extracts each subframe raw (warm-ups plus residuals, predictor
 parameters); the device runs the inverse predictors, applies the
 wasted-bits shift and inverts the stereo decorrelation, so the decoded
-PCM stays in device memory.
-
-Reconstruction takes one of two modes per batch:
-* ``"fixed"``: every subframe is FIXED-compatible, and the k-fold cumsum
-  inverse ``predict_fixed_batch`` needs no sequential step;
-* ``"lpc"``: the ``predict_lpc`` kernel with the smallest tap bucket that
-  covers the batch's largest order.  It is exact in int64 on every input,
-  so the JAX package's ``"scan"`` and ``"pallas"`` modes, and the gate
-  between them, are one mode here.
-
-Frames the host decodes itself (a short tail, the frame where the native
-parser stops, variable-block-size streams) are counted in
-``host_frames``; frames reconstructed on the device in ``device_frames``.
+PCM stays in device memory.  A batch is reconstructed in one of two modes
+(:func:`_mode_taps`): ``"fixed"``, the cumsum inverse
+``predict_fixed_batch``, where every subframe is FIXED-compatible, else
+``"lpc"``, the ``predict_lpc`` kernel with the smallest tap bucket that
+covers the batch's largest order, exact in int64 on every input (the JAX
+package's ``"scan"`` and ``"pallas"`` modes, and the gate between them).
 
 ``device_parse=True`` (off by default, as in the JAX package) moves the
-Rice parse to the device for fixed-block-size streams of at most 24 bits:
-the native ``scan_frames`` only finds the frame bodies and checks their
-CRCs, one copy uploads the batch's bytes, and ``parse_frame_bodies`` (K4)
-parses them.  A batch the scan cannot start or the parser does not take
-whole goes to the host parse, which raises the precise error or decodes
-it; ``parse_fallbacks`` counts such batches.
+Rice parse to the device for fixed-block-size streams of at most 24 bits.
+Both decoders then run one batch step, :func:`_device_parse_batch`: the
+native ``scan_frames`` finds the frame bodies and checks their CRCs, the
+bodies are staged in one pinned buffer (:func:`_stage_bodies`), one copy
+uploads them, ``parse_frame_bodies`` (K4) parses them, the gate's download
+is the step's one synchronisation, and the reconstruction follows on the
+device.  A batch the scan cannot start or the gate refuses goes to the
+host parse, which raises the precise error or decodes it
+(``parse_fallbacks``).  A frame the host decodes alone (a short tail, the
+frame where the parsers stop) goes through one tail, :func:`_host_frame`:
+the native decoder first, ``Decoder.read_frame`` where that one stops.
+``host_frames`` counts them and variable-block-size streams' frames,
+``device_frames`` the frames reconstructed on the device.
 
-With ``mesh`` (``parallel.mesh``) the host parse fills each batch as
-before, then each device reconstructs one contiguous shard of its frames
-on a stream of its own, and the shards are gathered in order onto the
-mesh's first device.  The device parse does not run under a mesh: with
-``device_parse=True`` the host parse fills each batch, as the JAX
-package turns the device parse off under a mesh.
+With ``mesh`` (``parallel.mesh``) the host parse fills each batch, each
+device reconstructs one contiguous shard of it on a stream of its own,
+and the shards are gathered in order onto the mesh's first device; the
+device parse is off there, as in the JAX package.
 
-The JAX package jits the device parse (``parse_frame_bodies`` and
-``parse_gate``) and ``_device_reconstruct``.  The counterparts here are
-CUDA graphs (``graphs.CapturedGraph``), each captured once per device,
-stream and configuration and replayed once per batch:
-``ops.framescan.ParseGraph`` and :class:`ReconstructGraph`.  A batch is
-padded to a frame bucket (:func:`frame_bucket`, the JAX decoder's rule)
-with all-zero rows: lanes of zero bits, which parse to zeros and which
-the gate leaves out, and subframes of order, shift and assignment 0,
-which reconstruct to zeros and change no real row.  The JAX package pads
-only its device parse and compiles the host-parse reconstruction anew for
-each batch length; the port pads both, because a graph per distinct
-short batch would keep a graph's memory for one batch.  The parse reads
-a byte buffer of a few capacities (``ops.framescan.byte_capacity``),
-zero past the batch's bytes.  Each batch goes up in one copy out of a
-pinned staging buffer into the graph's static input, and its real rows
-are copied out of the static output on the graph's stream, which the
-caller's current stream then waits for; so the returned tensor is the
-caller's, as JAX returns a fresh array.  The gate's download is the one
-synchronisation of a device-parse batch.  The CPU, and
-``graphs=False``, run the same padded batches eagerly.
+The JAX package jits the device parse (``parse_frame_bodies``,
+``parse_gate``) and ``_device_reconstruct``; here each is a CUDA graph
+(``graphs.CapturedGraph``: ``ops.framescan.ParseGraph``,
+:class:`ReconstructGraph`) captured once per device, stream and
+configuration and replayed once per batch, and the CPU and
+``graphs=False`` run the same batches eagerly.  Every batch is padded to
+a frame bucket (:func:`frame_bucket`, the JAX decoder's rule) with
+all-zero rows, which parse and reconstruct to zeros and which the gate
+leaves out; the JAX package pads only its device parse, but a graph per
+distinct short batch would keep a graph's memory for one batch.  The
+parse reads a byte buffer of a few capacities
+(``ops.framescan.byte_capacity``).  Real rows are read out of a graph's
+static output on its stream, which the caller's current stream then
+waits for, so the returned tensor is the caller's.
 
-:class:`MultiStreamDecoder` (the port's own; the JAX package has none)
-decodes many streams in one call into one zero-padded (streams,
-channels, samples) tensor, for a loader of short files: a
-``BatchDecoder`` batches the frames of one stream only, so a stream of
-fifty frames would cost a decoder, a scan and upload, a mostly padded
-parse and reconstruct and a gate sync of its own.  It packs whole
-frames of consecutive streams into each device-parse batch and runs the
-same scan, staging, ``ParseGraph``, gate and ``ReconstructGraph`` as
-``BatchDecoder``'s device parse, with the byte blob holding the bodies
-of several streams, then places the batch's rows by (stream, frame).
-
-Not ported: the ``FLAC_TPU_PALLAS`` / ``FLAC_TPU_NO_PALLAS`` /
-``FLAC_TPU_DEVICE_PARSE`` switches.
+:class:`MultiStreamDecoder` (the port's own) packs whole frames of
+consecutive short streams into each batch of the same step, and places
+the rows by (stream, frame) in one zero-padded tensor.  Not ported: the
+``FLAC_TPU_PALLAS`` / ``FLAC_TPU_NO_PALLAS`` / ``FLAC_TPU_DEVICE_PARSE``
+switches.
 """
 
 from __future__ import annotations
@@ -107,10 +91,6 @@ def frame_bucket(n: int, batch_frames: int) -> int:
     return bucket
 
 
-def _recon_shapes(B: int, C: int, N: int) -> tuple:
-    return ((B, C, N), (B, C, 32), (B, C), (B, C), (B, C), (B,))
-
-
 def recon_len(B: int, C: int, N: int) -> int:
     """int32 elements of a (B, C, N) reconstruct blob."""
     return B * C * (N + 35) + B
@@ -120,7 +100,7 @@ def recon_views(blob: torch.Tensor, B: int, C: int, N: int) -> tuple:
     """The six inputs of :func:`_device_reconstruct` (``RECON_KEYS``)
     inside a flat int32 ``blob`` of ``recon_len(B, C, N)``, as views."""
     out, lo = [], 0
-    for shape in _recon_shapes(B, C, N):
+    for shape in ((B, C, N), (B, C, 32), (B, C), (B, C), (B, C), (B,)):
         size = int(np.prod(shape))
         out.append(blob[lo:lo + size].view(shape))
         lo += size
@@ -200,34 +180,42 @@ class _Staging:
             self._events.append(event)
 
 
-def _body_span(scan: dict) -> tuple:
-    """The byte range of a scan's frame bodies: from the first body's
-    start to the last body's end."""
-    return (int(scan["body_off"][0]),
-            int(scan["body_off"][-1]) + int(scan["body_bytes"][-1]))
-
-
-def _write_bodies(blob: torch.Tensor, bucket: int, bodies: list) -> None:
-    """Stage ``bodies``, [(stream bytes, scan), ...], in ``blob`` for the
-    parse (``ops.framescan.upload_views`` of ``bucket`` lanes): each
-    scan's bytes from its first body to the end of its last, one scan
-    after another, and each body's lane (offset rebased onto the staged
-    bytes, bit length, assignment) in the same order.  Padding lanes and
-    the bytes past the last body are zero."""
-    data, offs, nbits, assign = (t.numpy() for t in upload_views(blob, bucket))
+def _stage_bodies(staging: _Staging, parts: list, bucket: int,
+                  places: list = None) -> tuple:
+    """Stage stream ``parts``, [(stream bytes, scan), ...], for the parse
+    (``ops.framescan.upload_views`` of ``bucket`` lanes): each scan's
+    bytes from its first body to the end of its last, one after another,
+    zero up to the byte capacity, and each body's lane (offset rebased
+    onto the staged bytes, bit length, assignment), padding lanes zero;
+    after them, given ``places``, each part's (stream, first frame), each
+    lane's stream and frame (2 x ``bucket`` int64).  Returns (blob, byte
+    capacity, places block or None)."""
+    spans = [(int(scan["body_off"][0]),
+              int(scan["body_off"][-1]) + int(scan["body_bytes"][-1]))
+             for _, scan in parts]
+    cap = byte_capacity(sum(hi - lo for lo, hi in spans))
+    head = 16 * bucket + cap
+    host = staging.take(head + (16 * bucket if places else 0))
+    data, offs, nbits, assign = (t.numpy()
+                                 for t in upload_views(host[:head], bucket))
+    where = places and host[head:].view(torch.int64).numpy().reshape(2, -1)
     lane = base = 0
-    for view, scan in bodies:
-        lo, hi = _body_span(scan)
+    for i, ((view, scan), (lo, hi)) in enumerate(zip(parts, spans)):
         n = scan["n"]
         offs[lane:lane + n] = scan["body_off"].astype(np.int64) - lo + base
         nbits[lane:lane + n] = scan["body_bytes"] * 8
         assign[lane:lane + n] = scan["assignment"]
         data[base:base + hi - lo] = view[lo:hi]
+        if places:
+            stream, first = places[i]
+            where[0, lane:lane + n] = stream
+            where[1, lane:lane + n] = np.arange(first, first + n)
         lane += n
         base += hi - lo
     for dst, end in ((offs, lane), (nbits, lane), (assign, lane),
                      (data, base)):
         dst[end:] = 0
+    return host[:head], cap, host[head:] if places else None
 
 
 def _parse_device(blob, bucket: int, cap: int, block_size: int,
@@ -251,6 +239,91 @@ def _parse_device(blob, bucket: int, cap: int, block_size: int,
                                        bits)
         with trace.stage("decode.gate_wait"):
             return (parsed, *gate.tolist())
+
+
+def _mode_taps(fixed: bool, order_max: int) -> tuple:
+    """A batch's reconstruct mode and taps (module docstring)."""
+    return ("fixed", 32) if fixed else ("lpc", tap_bucket(int(order_max)))
+
+
+def _replay_reconstruct(x, shape, mode: str, taps: int, d, s, graphs: bool,
+                        staging: _Staging) -> torch.Tensor:
+    """:func:`_device_reconstruct` of a (B, C, N) ``shape`` on device ``d``
+    and stream ``s``, made current by the caller: the graph's replay with
+    ``graphs`` on CUDA, whose static output is read on ``s`` before its
+    next replay, else eager.  ``x``: the six inputs on the device (a
+    device parse's), or a reconstruct blob staged on the host."""
+    staged = not isinstance(x, tuple)
+    if graphs and d.type == "cuda":
+        graph = reconstruct_graph(s, shape, mode, taps)
+        if staged:
+            graph.input.copy_(x, non_blocking=True)
+            staging.copied(s)
+        else:
+            for dst, src in zip(recon_views(graph.input, *shape), x):
+                dst.copy_(src)
+        return graph.replay()
+    if staged:
+        x = recon_views(x.to(d, non_blocking=True), *shape)
+        staging.copied(s)
+    return _device_reconstruct(*x, mode=mode, taps=taps)
+
+
+def _device_parse_batch(parts: list, fmt: tuple, batch_frames: int, shard,
+                        graphs: bool, staging: _Staging, take,
+                        places: list = None, req: int = None):
+    """The device-parse batch of both decoders: stream ``parts`` staged
+    (:func:`_stage_bodies`, in ``decode.upload``), parsed on the
+    ``shard``'s device and stream (d, s) and reconstructed there as
+    (bucket, C, N) of ``fmt`` (C, bits, N); ``take(out, places)`` reads
+    the real rows in ``decode.reconstruct`` and gives the result (never
+    None).  None where the gate refuses the batch."""
+    C, bits, N = fmt
+    d, s = shard
+    n = sum(scan["n"] for _, scan in parts)
+    bucket = frame_bucket(n, batch_frames)
+    with trace.stage("decode.upload", req=req, frames=n):
+        blob, cap, where = _stage_bodies(staging, parts, bucket, places)
+    parsed, all_ok, order_max, fixed = _parse_device(
+        blob, bucket, cap, N, C, bits, d, s, graphs, staging, n)
+    if not all_ok:
+        return None
+    mode, taps = _mode_taps(fixed, order_max)
+    with trace.stage("decode.reconstruct", req=req, frames=n, mode=mode):
+        with on_stream(s):
+            out = _replay_reconstruct(tuple(parsed[k] for k in RECON_KEYS),
+                                      (bucket, C, N), mode, taps, d, s,
+                                      graphs, staging)
+        return take(out, where)
+
+
+def _host_frame(nat, dec: Decoder, left: int | None, req: int = None):
+    """The frame at ``dec``'s reader as (channels, samples) int32, None at
+    the end of the stream, decoded on the host (``decode.host_frame``):
+    by the native decoder, and where that one stops by
+    ``Decoder.read_frame``, which raises the precise error.  ``left``:
+    the samples left, None if unknown.  Moves the reader past it."""
+    si = dec.streaminfo
+    with trace.stage("decode.host_frame", req=req):
+        out, sizes, end, _ = nat.decode_frames(
+            dec.r.np_view(), dec.r.pos, 1, si.sample_rate, si.channels,
+            si.bits_per_sample, si.maximum_block_size or 65535, left,
+            nthreads=1)
+        if len(sizes) == 0:
+            return dec.read_frame()
+        dec.r.pos = end
+        dec.current_sample += int(sizes[0])
+        return np.ascontiguousarray(out.reshape(-1, si.channels).T)
+
+
+def _device(device, who: str) -> torch.device:
+    """A decoder's ``device``: CUDA where it is available, or the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device='cuda'): CUDA is not available")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def _shard_sizes(rows: int, shards: int) -> list:
@@ -281,9 +354,8 @@ RECONSTRUCT_GRAPHS: dict = {}
 
 def reconstruct_graph(stream, shape, mode: str, taps: int) -> ReconstructGraph:
     """The :class:`ReconstructGraph` for a (B, C, N) ``shape``, ``mode``
-    and ``taps``, captured on first use.  The key is JAX's jit key (the
-    shape and the static arguments; ``limbs`` and ``mesh`` are not
-    ported) plus the device and stream."""
+    and ``taps``, captured on first use; keyed as JAX's jit (``limbs`` and
+    ``mesh`` not ported), and by device and stream."""
     key = (stream.device, stream.cuda_stream, tuple(shape), mode, taps)
     graph = RECONSTRUCT_GRAPHS.get(key)
     if graph is None:
@@ -296,18 +368,16 @@ class BatchDecoder:
     """Decode a FLAC stream in frame batches on ``device``.
 
     ``device="cuda"`` without CUDA raises, and so does a native engine
-    that does not build.  ``device="cpu"`` runs the same pipeline with the
+    that does not build; ``device="cpu"`` runs the same pipeline with the
     kernels' plain versions.  Decoded batches are int32 tensors on
     ``device``.  The positional parameters are the JAX package's;
     ``device`` and ``graphs`` are keyword-only.  ``device_parse`` parses
-    the frame bodies on the device (None, the default, means off: the
-    port does not read ``FLAC_TPU_DEVICE_PARSE``);
-    ``mesh`` (``parallel.mesh.batch_mesh``) shards the reconstruction over
-    its devices and leaves the PCM on the first, and ``device`` is then
-    not consulted (module docstring).  On CUDA each batch's parse and
-    reconstruction are replays of the configuration's CUDA graphs;
-    ``graphs=False`` runs them eagerly, op by op, the counterpart of
-    running the JAX decoder under ``jax.disable_jit()`` (the CPU always
+    the frame bodies on the device (None, the default, means off:
+    ``FLAC_TPU_DEVICE_PARSE`` is not read); ``mesh``
+    (``parallel.mesh.batch_mesh``) shards the reconstruction over its
+    devices and leaves the PCM on the first, ``device`` unread.
+    ``graphs=False`` runs each batch eagerly instead of as graph
+    replays, the counterpart of ``jax.disable_jit()`` (the CPU always
     runs eagerly).  A failed capture or replay raises.
     """
 
@@ -318,18 +388,11 @@ class BatchDecoder:
         if self.mesh is not None:
             self.device, devices = self.mesh[0], self.mesh
         else:
-            self.device = torch.device(device)
-            if self.device.type == "cuda":
-                if not torch.cuda.is_available():
-                    raise RuntimeError(
-                        "BatchDecoder(device='cuda'): CUDA is not available")
-            elif self.device.type != "cpu":
-                raise ValueError(f"unsupported device {self.device}")
+            self.device = _device(device, "BatchDecoder")
             devices = batch_mesh([self.device])
         # a device and a process-wide stream per shard (one without a
         # mesh), so later decoders replay the same graphs
         self._shards = list(zip(devices, shard_streams(devices)))
-        self._cuda = any(d.type == "cuda" for d in devices)
         self.graphs = graphs
         self._nat = native.load()
         self._owns_fp = isinstance(fp_or_path, (str, bytes))
@@ -349,9 +412,8 @@ class BatchDecoder:
         self._device_parse = (bool(device_parse) and self._fixed_blocks
                               and si.bits_per_sample <= 24
                               and self.mesh is None)
-        # the pinned upload buffer on CUDA, and the events of its last
-        # copies
-        self._staging = _Staging(self._cuda)
+        # the pinned upload buffer (on CUDA) and its last copies' events
+        self._staging = _Staging(any(d.type == "cuda" for d in devices))
         # real frames reconstructed on the device, frames the host
         # decoded, and batches the device parse handed to the host parse
         self.device_frames = 0
@@ -395,25 +457,21 @@ class BatchDecoder:
         return None if total is None else total - dec.current_sample
 
     def _host_frame(self):
-        """One frame through the host decoder, which raises the precise
-        error for a bad frame; None at end of stream."""
-        with trace.stage("decode.host_frame", req=self.request_id):
-            frame = self.decoder.read_frame()
+        """A frame decoded by :func:`_host_frame`, as a batch of one."""
+        frame = _host_frame(self._nat, self.decoder, self._remaining(),
+                            self.request_id)
         if frame is None:
             return None
         self.host_frames += 1
         return (torch.from_numpy(frame[None]).to(self.device),
                 np.array([frame.shape[1]]))
 
-    def _read_batch_bulk_host(self):
+    def _read_batch_bulk_host(self, remaining: int | None):
         """Variable-block-size streams: decode a whole batch with one
         native bulk call (which handles per-frame sizes) and upload the
         batch, padded to its largest frame."""
         dec = self.decoder
         si = dec.streaminfo
-        remaining = self._remaining()
-        if remaining is not None and remaining <= 0:
-            return None
         max_block = si.maximum_block_size or 65535
         with trace.stage("decode.bulk_host", req=self.request_id,
                          frames=self.batch_frames):
@@ -426,41 +484,21 @@ class BatchDecoder:
             return self._host_frame()
         dec.r.pos = end
         dec.current_sample += int(sizes.sum())
-        B, C = len(sizes), si.channels
-        N = int(sizes.max())
-        pcm = np.zeros((B, C, N), np.int32)
-        pos = 0
-        for b, n in enumerate(sizes):
-            n = int(n)
-            pcm[b, :, :n] = out[pos:pos + n * C].reshape(n, C).T
-            pos += n * C
-        self.host_frames += B
+        C = si.channels
+        pcm = np.zeros((len(sizes), C, int(sizes.max())), np.int32)
+        cuts = np.cumsum(sizes[:-1].astype(np.int64)) * C
+        for b, x in enumerate(np.split(out, cuts)):
+            pcm[b, :, :len(x) // C] = x.reshape(-1, C).T
+        self.host_frames += len(sizes)
         return torch.from_numpy(pcm).to(self.device), sizes
 
-    def _upload(self, view: np.ndarray, scan: dict, bucket: int):
-        """Stage the batch for the parse (``ops.framescan.upload_views``
-        of ``bucket`` lanes): body offsets, bit lengths, assignments,
-        then the bytes from the first body to the end of the last, zero
-        up to the byte capacity.  Padding lanes are all zero.  Returns
-        the staged blob and the capacity."""
-        lo, hi = _body_span(scan)
-        cap = byte_capacity(hi - lo)
-        blob = self._staging.take(16 * bucket + cap)
-        _write_bodies(blob, bucket, [(view, scan)])
-        return blob, cap
-
-    def _read_batch_device_parse(self):
-        """The device-parse step: the native scan finds the batch's frame
-        bodies and checks their CRCs, one copy uploads them, the device
-        parses them and reconstructs the PCM.  Returns (pcm, blocks), None
-        at end of stream, or "fallback" with the reader's position
-        untouched when the scan finds no frame (a short tail, a damaged
-        frame) or a body does not parse."""
+    def _read_batch_device_parse(self, remaining: int | None):
+        """The native scan of the batch's frames, then
+        :func:`_device_parse_batch`: (pcm, blocks), or None with the
+        reader untouched where the scan finds no frame (a short tail, a
+        damaged frame) or the gate refuses the batch."""
         dec = self.decoder
         si = dec.streaminfo
-        remaining = self._remaining()
-        if remaining is not None and remaining <= 0:
-            return None
         view = dec.r.np_view()
         with trace.stage("decode.scan", req=self.request_id,
                          frames=self.batch_frames):
@@ -472,26 +510,17 @@ class BatchDecoder:
         # an empty body would look like a padding lane to the gate: the
         # host parse raises its error
         if B == 0 or not scan["body_bytes"].all():
-            return "fallback"
-        bucket = frame_bucket(B, self.batch_frames)
-        C, N = si.channels, self.block_size
+            return None
         (d, s), = self._shards
-        with trace.stage("decode.upload", req=self.request_id, frames=B):
-            blob, cap = self._upload(view, scan, bucket)
-        parsed, all_ok, order_max, fixed = _parse_device(
-            blob, bucket, cap, N, C, si.bits_per_sample, d, s, self.graphs,
-            self._staging, B)
-        if not all_ok:
-            return "fallback"
+        pcm = _device_parse_batch(
+            [(view, scan)], (si.channels, si.bits_per_sample,
+                             self.block_size), self.batch_frames, (d, s),
+            self.graphs, self._staging,
+            lambda out, _: self._take(out, B, d, s), req=self.request_id)
+        if pcm is None:
+            return None
         dec.r.pos = scan["end_bitpos"]
         dec.current_sample += int(scan["blocks"].sum())
-        mode = "fixed" if fixed else "lpc"
-        taps = 32 if fixed else tap_bucket(order_max)
-        with trace.stage("decode.reconstruct", req=self.request_id,
-                         frames=B, mode=mode):
-            pcm = self._reconstruct(
-                [tuple(parsed[k] for k in RECON_KEYS)], bucket, B, mode,
-                taps)
         self.device_frames += B
         return pcm, scan["blocks"]
 
@@ -507,18 +536,18 @@ class BatchDecoder:
             return self._read_batch()
 
     def _read_batch(self):
+        remaining = self._remaining()
+        if remaining is not None and remaining <= 0:
+            return None
         if not self._fixed_blocks:
-            return self._read_batch_bulk_host()
+            return self._read_batch_bulk_host(remaining)
         if self._device_parse:
-            got = self._read_batch_device_parse()
-            if not isinstance(got, str):
+            got = self._read_batch_device_parse(remaining)
+            if got is not None:
                 return got
             self.parse_fallbacks += 1
         dec = self.decoder
         si = dec.streaminfo
-        remaining = self._remaining()
-        if remaining is not None and remaining <= 0:
-            return None
         with trace.stage("decode.parse", req=self.request_id,
                          frames=self.batch_frames):
             raw = self._nat.parse_frames_raw(
@@ -532,84 +561,58 @@ class BatchDecoder:
         dec.r.pos = raw["end_bitpos"]
         dec.current_sample += int(raw["blocks"].sum())
 
-        # all-FIXED batches take the cumsum inverse; otherwise the kernel
-        # runs with the smallest tap bucket covering the largest order
-        C, N = si.channels, self.block_size
-        fixed = fixed_compatible_mask(raw["qcoeffs"].reshape(n * C, 32),
-                                      raw["shift"].reshape(n * C),
-                                      raw["order"].reshape(n * C)).all()
-        mode = "fixed" if fixed else "lpc"
-        taps = 32 if fixed else tap_bucket(int(raw["order"].max()))
-        bucket = frame_bucket(n, self.batch_frames)
+        mode, taps = _mode_taps(
+            fixed_compatible_mask(raw["qcoeffs"].reshape(-1, 32),
+                                  raw["shift"].reshape(-1),
+                                  raw["order"].reshape(-1)).all(),
+            raw["order"].max())
         with trace.stage("decode.reconstruct", req=self.request_id,
                          frames=n, mode=mode):
-            # one staged reconstruct blob per shard of the padded batch,
-            # padding rows zero
-            sizes = _shard_sizes(bucket, len(self._shards))
-            host = self._staging.take(
-                4 * sum(recon_len(b, C, N) for b in sizes))
-            host = host.view(torch.int32)
-            blobs, lo, first = [], 0, 0
-            for b in sizes:
-                blob = host[lo:lo + recon_len(b, C, N)]
-                m = min(max(n - first, 0), b)
-                for dst, k in zip(recon_views(blob, b, C, N), RECON_KEYS):
-                    dst = dst.numpy()
-                    dst[:m] = raw[k][first:first + m]
-                    dst[m:] = 0
-                blobs.append(blob)
-                lo += len(blob)
-                first += b
-            pcm = self._reconstruct(blobs, bucket, n, mode, taps)
+            pcm = self._reconstruct(raw, n, mode, taps)
         self.device_frames += n
         return pcm, raw["blocks"]
 
-    def _reconstruct(self, inputs: list, bucket: int, n: int, mode: str,
-                     taps: int) -> torch.Tensor:
-        """The PCM of a batch's ``n`` real frames, padded to ``bucket``
-        and cut into one shard a mesh entry (``inputs``: each shard's
-        reconstruct blob staged on the host, or, without a mesh, the six
-        tensors of a device parse).  Each shard holding a real frame is
-        reconstructed on its device and stream (a graph replay on CUDA)
-        and its real rows copied out, so the next replay cannot overwrite
-        them; the shards are gathered in order on the first device, whose
-        current stream waits for every shard."""
+    def _take(self, out, m: int, d, s) -> torch.Tensor:
+        """The first ``m`` rows of ``out`` (device ``d``), read on its
+        stream ``s`` and handed to the first device's current stream; a
+        graph's static output is copied out before the next replay."""
         home = self._shards[0][0]
-        consumer = (torch.cuda.current_stream(home) if home.type == "cuda"
-                    else None)
+        with on_stream(s):
+            part = (out[:m].clone() if self.graphs and d == home
+                    and d.type == "cuda" else out[:m].to(home))
+        if home.type == "cuda":
+            consumer = torch.cuda.current_stream(home)
+            if s is not None:
+                consumer.wait_stream(s)
+            part.record_stream(consumer)
+        return part
+
+    def _reconstruct(self, raw: dict, n: int, mode: str,
+                     taps: int) -> torch.Tensor:
+        """The PCM of the ``n`` frames of a host parse ``raw``, padded to
+        their bucket and cut into one shard a mesh entry, each staged as a
+        reconstruct blob (padding rows zero) in one host buffer, then
+        reconstructed where it holds a real frame and taken in order."""
         C, N = self.streaminfo.channels, self.block_size
-        parts, first = [], 0
-        for (d, s), x, b in zip(self._shards, inputs,
-                                _shard_sizes(bucket, len(self._shards))):
-            m, first = min(n - first, b), first + b
-            if m <= 0:
+        sizes = _shard_sizes(frame_bucket(n, self.batch_frames),
+                             len(self._shards))
+        host = self._staging.take(4 * sum(recon_len(b, C, N) for b in sizes))
+        host = host.view(torch.int32)
+        parts, lo, first = [], 0, 0
+        for (d, s), b in zip(self._shards, sizes):
+            blob = host[lo:lo + recon_len(b, C, N)]
+            m = min(max(n - first, 0), b)
+            for dst, k in zip(recon_views(blob, b, C, N), RECON_KEYS):
+                dst = dst.numpy()
+                dst[:m] = raw[k][first:first + m]
+                dst[m:] = 0
+            lo, first = lo + len(blob), first + b
+            if m == 0:
                 continue
-            shape = (b, C, N)
             with on_stream(s):
-                if self.graphs and d.type == "cuda":
-                    graph = reconstruct_graph(s, shape, mode, taps)
-                    if isinstance(x, tuple):
-                        for dst, src in zip(recon_views(graph.input, *shape),
-                                            x):
-                            dst.copy_(src)
-                    else:
-                        graph.input.copy_(x, non_blocking=True)
-                        self._staging.copied(s)
-                    part = graph.replay()[:m]
-                    # the static output: copy it out (.to(home) alone
-                    # would hand it out when d is home)
-                    part = part.clone() if d == home else part.to(home)
-                else:
-                    if not isinstance(x, tuple):
-                        x = recon_views(x.to(d, non_blocking=True), *shape)
-                        self._staging.copied(s)
-                    part = _device_reconstruct(*x, mode=mode,
-                                               taps=taps)[:m].to(home)
-            if consumer is not None:
-                if s is not None:
-                    consumer.wait_stream(s)
-                part.record_stream(consumer)
-            parts.append(part)
+                out = _replay_reconstruct(blob, (b, C, N), mode, taps, d, s,
+                                          self.graphs, self._staging)
+            parts.append(self._take(out, m, d, s))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def read_batch_interleaved(self):
@@ -673,40 +676,29 @@ class MultiStreamDecoder:
 
     The call's device format is that of its first stream the device parse
     can take: a fixed block size, at most 24 bits, a known length.  The
-    whole frames of the streams of that channel count, bit depth and
-    block size are packed in order into device batches of at most
-    ``batch_frames`` frames, a stream straddling two batches where it
-    must.  A batch is one native ``scan_frames`` a stream part, one copy
-    out of the decoder's pinned buffer, one parse graph replay (K4) and
-    gate download, one reconstruct graph replay (K3) and one device-side
-    index copy of its real rows to their (stream, frame) places, staged
-    beside its bytes.  Each stream's short last frame is decoded on the
-    host (by the native decoder, and by ``Decoder.read_frame`` where that
-    one stops), and the call's tails and lengths go up in one copy.
+    whole frames of the streams of that format are packed in order into
+    batches of at most ``batch_frames`` frames, a stream straddling two
+    batches where it must; each batch is a native ``scan_frames`` a
+    stream part and :func:`_device_parse_batch`, whose rows one index
+    copy puts in their (stream, frame) places, staged beside the bytes.
+    Each stream's short last frame is decoded by :func:`_host_frame`, and
+    the call's tails and lengths go up in one copy.  A stream of another
+    format, or whose whole frames the scan does not find, is decoded
+    alone by a :class:`BatchDecoder` with the device parse
+    (``stream_fallbacks``); the streams of a batch the gate refuses,
+    alone by its host parse (``parse_fallbacks``).  So the result stays
+    exact, and a damaged stream raises what ``BatchDecoder`` raises.
 
-    A stream of another format, or one whose whole frames the scan does
-    not find, is decoded alone through :class:`BatchDecoder` with the
-    device parse (``stream_fallbacks``); the streams of a batch whose
-    gate fails, alone through its host parse (``parse_fallbacks``).  So
-    the result stays exact, and a damaged stream raises what
-    ``BatchDecoder`` raises.
-
-    One request id, one profiler session and one flush of the trace a
-    call (the ``decode.streams`` span); the pinned buffer and the graphs
-    live as long as the decoder.  ``device="cuda"`` without CUDA raises,
-    as in :class:`BatchDecoder`; ``device="cpu"`` runs the same batches
-    eagerly, as ``graphs=False`` does on CUDA.  The counters below are
-    summed over calls.
+    One request id, profiler session and flush of the trace a call (the
+    ``decode.streams`` span); the pinned buffer and the graphs live as
+    long as the decoder.  ``device`` is checked as in
+    :class:`BatchDecoder`; the CPU runs the batches eagerly, as
+    ``graphs=False`` does on CUDA.  The counters are summed over calls.
     """
 
     def __init__(self, batch_frames: int = 256, device="cuda",
                  graphs: bool = True):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "MultiStreamDecoder(device='cuda'): CUDA is not available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = _device(device, "MultiStreamDecoder")
         self._shard_stream, = shard_streams([self.device])
         self.batch_frames = batch_frames
         self.graphs = graphs
@@ -800,12 +792,18 @@ class MultiStreamDecoder:
             consumer.wait_stream(s)
         tails = []
         for st in device:
-            if st not in redo and st.length > st.whole * fmt[2]:
-                frame = self._tail(st)
-                if frame is None:
-                    redo[st] = True
-                else:
-                    tails.append((st, frame))
+            # each stream's short last frame, on the host; one that is not
+            # the stream's last samples sends the stream to redo
+            dec, done = st.decoder, st.whole * fmt[2]
+            if st in redo or st.length == done:
+                continue
+            dec.r.pos, dec.current_sample = st.pos, done
+            frame = _host_frame(self._nat, dec, st.length - done)
+            if frame is None or dec.current_sample != st.length:
+                redo[st] = True
+            else:
+                self.host_frames += 1
+                tails.append((st, frame))
         lengths = [len(alone[st.index]) if st.index in alone else st.length
                    for st in streams]
         with trace.stage("decode.place", tails=len(tails)):
@@ -817,10 +815,9 @@ class MultiStreamDecoder:
 
     def _batch(self, pending, redo: dict, pcm: torch.Tensor,
                fmt: tuple) -> None:
-        """Pack the next batch from ``pending`` streams, parse and
-        reconstruct it, and place its rows in ``pcm``.  Streams whose
-        frames the scan does not find, and the streams of a batch whose
-        gate fails, go to ``redo``."""
+        """The next batch of ``pending`` streams, its rows placed in
+        ``pcm``; streams whose frames the scan does not find, and those of
+        a batch the gate refuses, go to ``redo``."""
         C, bits, N = fmt
         parts, n = [], 0
         with trace.stage("decode.scan"):
@@ -847,89 +844,32 @@ class MultiStreamDecoder:
                        simd=self._nat.scan_simd)
         if not parts:
             return
-        bucket = frame_bucket(n, self.batch_frames)
         d, s = self.device, self._shard_stream
-        with trace.stage("decode.upload", frames=n):
-            blob, cap, where = self._upload(parts, bucket)
-        parsed, all_ok, order_max, fixed = _parse_device(
-            blob, bucket, cap, N, C, bits, d, s, self.graphs, self._staging,
-            n)
-        if not all_ok:
+
+        def place(out, where):
+            # the real rows to their (stream, frame) places, read on the
+            # graph's stream before its next replay
+            U, Cs, S = pcm.shape
+            frames = pcm.as_strided((U, S // N, C, N), (Cs * S, N, S, 1))
+            with on_stream(s):
+                where = where.to(d, non_blocking=True).view(torch.int64)
+                self._staging.copied(s)
+                u, f = where.view(2, -1)[:, :n]
+                return frames.index_put_((u, f), out[:n])
+
+        if _device_parse_batch(
+                [(st.view, scan) for st, scan, _ in parts], fmt,
+                self.batch_frames, (d, s), self.graphs, self._staging, place,
+                places=[(st.index, first) for st, _, first in parts]) is None:
             self.parse_fallbacks += 1
             for st, _, _ in parts:
                 redo[st] = False
             if pending and pending[0] is parts[-1][0]:
                 pending.popleft()
             return
-        mode = "fixed" if fixed else "lpc"
-        taps = 32 if fixed else tap_bucket(order_max)
-        shape = (bucket, C, N)
-        x = tuple(parsed[k] for k in RECON_KEYS)
-        with trace.stage("decode.reconstruct", frames=n, mode=mode), \
-                on_stream(s):
-            if self.graphs and d.type == "cuda":
-                graph = reconstruct_graph(s, shape, mode, taps)
-                for dst, src in zip(recon_views(graph.input, *shape), x):
-                    dst.copy_(src)
-                out = graph.replay()
-            else:
-                out = _device_reconstruct(*x, mode=mode, taps=taps)
-            # the real rows to their (stream, frame) places, read on the
-            # graph's stream before its next replay
-            U, Cs, S = pcm.shape
-            rows = pcm.as_strided((U, S // N, C, N), (Cs * S, N, S, 1))
-            where = where.to(d, non_blocking=True).view(torch.int64)
-            self._staging.copied(s)
-            rows.index_put_((where[:n], where[bucket:bucket + n]), out[:n])
         self.device_frames += n
         self.device_batches += 1
         self.batch_streams += len(parts)
-
-    def _upload(self, parts: list, bucket: int) -> tuple:
-        """Stage a batch of stream ``parts``, [(stream, scan, first
-        frame), ...], in the pinned buffer: the parse's blob (the bodies
-        of every part, :func:`_write_bodies`) and after it each lane's
-        stream and frame (2 x ``bucket`` int64).  Returns (blob, byte
-        capacity, places)."""
-        cap = byte_capacity(sum(hi - lo for lo, hi in
-                                (_body_span(scan) for _, scan, _ in parts)))
-        head = 16 * bucket + cap
-        host = self._staging.take(head + 16 * bucket)
-        blob, where = host[:head], host[head:]
-        _write_bodies(blob, bucket, [(st.view, scan) for st, scan, _ in parts])
-        u, f = where.view(torch.int64).numpy().reshape(2, bucket)
-        lane = 0
-        for st, scan, first in parts:
-            k = scan["n"]
-            u[lane:lane + k] = st.index
-            f[lane:lane + k] = np.arange(first, first + k)
-            lane += k
-        return blob, cap, where
-
-    def _tail(self, st: _Stream):
-        """The stream's short last frame, (channels, samples) int32, on
-        the host (the ``decode.host_frame`` span): the native decoder's,
-        as ``BatchDecoder``'s bulk host path decodes frames of any size,
-        and where it stops, the host decoder's (``Decoder.read_frame``),
-        which raises the precise error for a bad frame.  None where the
-        frame is not the stream's last samples."""
-        dec = st.decoder
-        si = dec.streaminfo
-        done = st.whole * si.maximum_block_size
-        left = st.length - done
-        with trace.stage("decode.host_frame"):
-            out, sizes, _, _ = self._nat.decode_frames(
-                st.view, st.pos, 1, si.sample_rate, si.channels,
-                si.bits_per_sample, si.maximum_block_size, left, nthreads=1)
-            if len(sizes) == 1 and sizes[0] == left:
-                frame = out.reshape(left, si.channels).T
-            else:
-                dec.r.pos, dec.current_sample = st.pos, done
-                frame = dec.read_frame()
-                if frame is None or dec.current_sample != st.length:
-                    return None
-        self.host_frames += 1
-        return frame
 
     def _place(self, pcm: torch.Tensor, lengths: list, tails: list,
                block: int) -> torch.Tensor:

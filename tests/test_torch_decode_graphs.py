@@ -188,7 +188,7 @@ def test_padded_parse_matches_unpadded_and_jax_gate(bps, channels):
     n, B, N, C = scan["n"], 8, si.maximum_block_size, si.channels
     assert n == 5
     with tbd.BatchDecoder(io.BytesIO(data), device="cpu") as dec:
-        blob, cap = dec._upload(view, scan, B)
+        blob, cap, _ = tbd._stage_bodies(dec._staging, [(view, scan)], B)
     assert cap == 1 << 20 and blob.shape == (16 * B + cap,)
     off = scan["body_off"].astype(np.int64)
     span = int(off[-1] - off[0]) + int(scan["body_bytes"][-1])

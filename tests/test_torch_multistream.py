@@ -15,7 +15,7 @@ import torch
 from benchmark.reference import decode as ref_decode
 from benchmark.reference import encode as ref_encode
 from flac_codec_tpu_torch import errors
-from flac_codec_tpu_torch.decode import Decoder
+from flac_codec_tpu_torch.decode import Decoder, FlacSampleReader
 from flac_codec_tpu_torch.parallel import batch_decode
 from flac_codec_tpu_torch.parallel.batch_decode import (BatchDecoder,
                                                         MultiStreamDecoder)
@@ -200,6 +200,98 @@ def test_a_damaged_stream_raises_as_batch_decoder_does(frame):
     dec = MultiStreamDecoder(BATCH, device="cpu")
     with pytest.raises(type(alone.value)):
         dec.decode([io.BytesIO(good[0]), io.BytesIO(bad)])
+
+
+# ---------------------------------------------------------------------------
+# The batch step and the tail both decoders share
+# ---------------------------------------------------------------------------
+
+def test_one_stream_decodes_alike_in_both_decoders():
+    """The same stream through ``BatchDecoder``'s device parse and through
+    ``MultiStreamDecoder``: the same PCM, device frames and host frames."""
+    stream, src = _stream(9 * BLOCK + 77, seed=800, channels=2)
+    with BatchDecoder(io.BytesIO(stream), BATCH, None, True,
+                      device="cpu") as alone:
+        want = alone.read_all_device()
+    dec = MultiStreamDecoder(BATCH, device="cpu")
+    pcm, lengths = dec.decode([io.BytesIO(stream)])
+    assert np.array_equal(want.numpy(), src)
+    assert torch.equal(pcm[0].T, want) and lengths.tolist() == [len(src)]
+    assert (dec.device_frames, dec.host_frames) == (9, 1)
+    assert (alone.device_frames, alone.host_frames) == (9, 1)
+
+
+@pytest.mark.parametrize("path", ["host_parse", "device_parse", "loader"])
+def test_a_short_last_frame_takes_the_shared_tail(path, monkeypatch):
+    """The short last frame goes through ``batch_decode._host_frame`` once,
+    and its native half decodes it (``Decoder.read_frame`` is not
+    called); the stream equals ``FlacSampleReader``'s."""
+    stream, src = _stream(5 * BLOCK + 123, seed=801, channels=2)
+    frames, reads = [], []
+    real_tail, real_read = batch_decode._host_frame, Decoder.read_frame
+
+    def tail(*args, **kwargs):
+        frame = real_tail(*args, **kwargs)
+        frames.append(frame.shape)
+        return frame
+
+    def read_frame(self):
+        reads.append(self)
+        return real_read(self)
+
+    monkeypatch.setattr(batch_decode, "_host_frame", tail)
+    monkeypatch.setattr(Decoder, "read_frame", read_frame)
+    if path == "loader":
+        dec = MultiStreamDecoder(BATCH, device="cpu")
+        pcm, _ = dec.decode([io.BytesIO(stream)])
+        got = pcm[0].T.numpy()
+    else:
+        with BatchDecoder(io.BytesIO(stream), BATCH, None,
+                          path == "device_parse", device="cpu") as dec:
+            got = dec.read_all_device().numpy()
+    want = FlacSampleReader(io.BytesIO(stream)).read_all().reshape(-1, 2)
+    assert np.array_equal(got, want) and np.array_equal(got, src)
+    assert dec.host_frames == 1 and frames == [(2, 123)] and not reads
+
+
+def _read_frame_error(stream: bytes) -> type:
+    """The error ``Decoder.read_frame`` raises on ``stream``, read frame
+    by frame from its first."""
+    dec = Decoder(io.BytesIO(stream))
+    with pytest.raises(errors.FlacError) as err:
+        while dec.read_frame() is not None:
+            pass
+    return type(err.value)
+
+
+@pytest.mark.parametrize("device_parse", [False, True],
+                         ids=["host_parse", "device_parse"])
+@pytest.mark.parametrize("damage", ["cut_in_last_frame",
+                                    "bit_flip_in_middle_residuals"])
+def test_a_damaged_frame_raises_what_read_frame_raises(damage, device_parse):
+    """The native decoder, tried first on the frame where the parsers
+    stop, must not accept a frame ``Decoder.read_frame`` refuses: the
+    decode raises ``read_frame``'s error, of the same type."""
+    stream, _ = _stream(6 * BLOCK + 70, seed=802, channels=2)
+    if damage == "cut_in_last_frame":
+        bad = stream[:-9]
+    else:
+        start = Decoder(io.BytesIO(stream)).frames_start
+        scan = batch_decode.native.load().scan_frames(
+            np.frombuffer(stream, np.uint8)[start:], 0, 6, 16000, 2, 16,
+            BLOCK, None)
+        assert scan["n"] == 6
+        # the middle of frame 3's body: its residuals
+        at = start + int(scan["body_off"][3]) + int(scan["body_bytes"][3]) // 2
+        bad = bytearray(stream)
+        bad[at] ^= 0x08
+        bad = bytes(bad)
+    want = _read_frame_error(bad)
+    with pytest.raises(errors.FlacError) as got:
+        with BatchDecoder(io.BytesIO(bad), BATCH, None, device_parse,
+                          device="cpu") as dec:
+            dec.read_all_device()
+    assert type(got.value) is want
 
 
 def test_a_batch_the_gate_refuses_goes_to_the_host_parse(monkeypatch):
