@@ -87,7 +87,7 @@ class Native:
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
             ctypes.c_uint32, ctypes.c_uint64,
             i32p, u8p, i8p, u8p, i32p, u8p, u32p,
-            ctypes.POINTER(ctypes.c_uint64), u32p]
+            ctypes.POINTER(ctypes.c_uint64), u32p, ctypes.c_uint32, u32p]
         for scan in (lib.nat_scan_frames, lib.nat_scan_frames_portable):
             scan.restype = ctypes.c_int64
             scan.argtypes = [
@@ -295,9 +295,16 @@ class Native:
 
     def parse_frames_raw(self, buf: np.ndarray, start_bitpos: int,
                          n_frames: int, sample_rate: int, channels: int,
-                         bps: int, block_size: int, remaining_samples):
+                         bps: int, block_size: int, remaining_samples,
+                         nthreads: int = 0):
         """Parse frames for the device decode pipeline; returns a dict of
-        raw-subframe arrays (buffers pre-predict) + end bitpos + error."""
+        raw-subframe arrays (buffers pre-predict) + end bitpos + error.
+        The uniform-block prefix is parsed in contiguous spans, one thread
+        each: ``nthreads`` 0 takes min(usable CPUs, frames // 16), another
+        value at most that many spans (1 = the one-thread pump).  The
+        arrays are the same whatever the spans; ``spans`` says how many
+        parsed the prefix (0: the sequential parser, 1: the one-thread
+        pump)."""
         out = np.zeros((n_frames, channels, block_size), dtype=np.int32)
         order = np.zeros((n_frames, channels), dtype=np.uint8)
         shift = np.zeros((n_frames, channels), dtype=np.int8)
@@ -307,6 +314,7 @@ class Native:
         blocks = np.zeros(n_frames, dtype=np.uint32)
         end = ctypes.c_uint64(0)
         err = np.zeros(1, dtype=np.uint32)
+        spans = np.zeros(1, dtype=np.uint32)
         rem = (1 << 64) - 1 if remaining_samples is None else remaining_samples
 
         def p(a, ct):
@@ -319,13 +327,14 @@ class Native:
             channels, bps, block_size, rem,
             p(out, i32), p(order, u8), p(shift, i8), p(wasted, u8),
             p(qcoeffs, i32), p(assignment, u8), p(blocks, u32),
-            ctypes.byref(end), p(err, u32))
+            ctypes.byref(end), p(err, u32), nthreads, p(spans, u32))
         n = int(n)
         return {
             "n": n, "buf": out[:n], "order": order[:n], "shift": shift[:n],
             "wasted": wasted[:n], "qcoeffs": qcoeffs[:n],
             "assignment": assignment[:n], "blocks": blocks[:n],
             "end_bitpos": int(end.value), "error": int(err[0]),
+            "spans": int(spans[0]),
         }
 
     def scan_frames(self, buf: np.ndarray, start_bitpos: int,

@@ -420,6 +420,14 @@ int32_t nat_lpc_residuals(const int64_t* x, size_t n, const int32_t* q,
 // frames at once; this code turns plans into bits at memory speed.
 // ---------------------------------------------------------------------------
 
+#include <pthread.h>
+#include <sched.h>
+
+#include <atomic>
+#include <condition_variable>
+#include <functional>
+#include <mutex>
+#include <system_error>
 #include <thread>
 #include <vector>
 #include <algorithm>
@@ -1858,6 +1866,108 @@ static inline uint64_t bytes_left(uint64_t buf_bytes, uint64_t start_byte) {
     return start_byte < buf_bytes ? buf_bytes - start_byte : 0;
 }
 
+// Split candidates [0, K) into nt contiguous spans of about equal bytes,
+// measured over the call's own frames: from cands[0].pos to the end of
+// frame K - 1 (cands[K].pos where the scan found it, else one mean frame
+// past cands[K - 1].pos).  Returns nt + 1 candidate indices; a span may
+// be empty where frame sizes are very uneven.
+static std::vector<size_t> split_spans(const std::vector<Cand>& cands,
+                                       size_t K, uint32_t nt) {
+    uint64_t first = cands[0].pos;
+    uint64_t end = K < cands.size() ? cands[K].pos
+        : cands[K - 1].pos + (K > 1 ? (cands[K - 1].pos - first) / (K - 1)
+                                    : 0);
+    std::vector<size_t> split(nt + 1);
+    split[0] = 0;
+    for (uint32_t t = 1; t < nt; t++) {
+        uint64_t target = first + (end - first) * t / nt;
+        size_t j = split[t - 1];
+        while (j < K && cands[j].pos < target) j++;
+        split[t] = j;
+    }
+    split[nt] = K;
+    return split;
+}
+
+// Worker threads kept for the spans of one call at a time: on the 8-core
+// host of an H100 machine, starting and joining one to seven threads cost
+// 0.5-1.5 ms a call, against ~1.2 ms of raw parse in a span of 32 CD
+// frames.  The workers start at first use and
+// wait on a condition variable between calls; a forked child starts a pool
+// of its own.
+class SpanPool {
+  public:
+    // fn(t) for every t < nt, the spans claimed in order by the calling
+    // thread and up to nt - 1 workers (by the calling thread alone where
+    // no worker can start); a second call waits for the first to end.
+    void run(uint32_t nt, const std::function<void(uint32_t)>& fn) {
+        std::lock_guard<std::mutex> call(call_mu_);
+        std::unique_lock<std::mutex> lk(mu_);
+        done_.wait(lk, [&] { return active_ == 0; });  // late wakers gone
+        while (workers_ < std::min(nt - 1, MAX_WORKERS)) {
+            try {
+                std::thread([this, g = gen_] { loop(g); }).detach();
+            } catch (const std::system_error&) {
+                break;
+            }
+            workers_++;
+        }
+        fn_ = &fn;
+        nt_ = nt;
+        next_.store(0);
+        gen_++;
+        lk.unlock();
+        work_.notify_all();
+        claim();
+        lk.lock();
+        done_.wait(lk, [&] { return active_ == 0; });
+    }
+
+  private:
+    static constexpr uint32_t MAX_WORKERS = 63;
+
+    void claim() {
+        for (uint32_t t; (t = next_.fetch_add(1)) < nt_;) (*fn_)(t);
+    }
+    void loop(uint64_t seen) {
+        std::unique_lock<std::mutex> lk(mu_);
+        for (;;) {
+            work_.wait(lk, [&] { return gen_ != seen; });
+            seen = gen_;
+            active_++;
+            lk.unlock();
+            claim();
+            lk.lock();
+            if (--active_ == 0) done_.notify_all();
+        }
+    }
+
+    std::mutex call_mu_, mu_;
+    std::condition_variable work_, done_;
+    uint32_t workers_ = 0, active_ = 0, nt_ = 0;
+    uint64_t gen_ = 0;
+    std::atomic<uint32_t> next_{0};
+    const std::function<void(uint32_t)>* fn_ = nullptr;
+};
+
+static std::atomic<SpanPool*> span_pool_ptr{nullptr};
+
+// The process's pool, made at first use and never freed (its workers wait
+// for the process's end); a forked child, which holds none of the
+// parent's workers, makes its own.
+static SpanPool& span_pool() {
+    SpanPool* p = span_pool_ptr.load();
+    if (p) return *p;
+    static std::once_flag registered;
+    std::call_once(registered, [] {
+        pthread_atfork(nullptr, nullptr, [] { span_pool_ptr.store(nullptr); });
+    });
+    SpanPool* fresh = new SpanPool;
+    if (span_pool_ptr.compare_exchange_strong(p, fresh)) return *fresh;
+    delete fresh;
+    return *p;
+}
+
 static void scan_frame_candidates(const uint8_t* buf, uint64_t buf_bytes,
                                   uint64_t start_byte, uint32_t n_frames,
                                   uint32_t sample_rate, uint32_t channels,
@@ -1999,10 +2109,14 @@ static int64_t pump_decode(const uint8_t* buf, uint64_t buf_bytes,
 // channel buffer and no copy pass, unlike the sequential raw parser.
 // Engaged for bps < 26 only (the sequential path keeps the int64
 // fit-check for wider streams); residuals of hostile >int32 streams wrap
-// exactly as the sequential int32 cast does.  Returns candidates parsed
+// exactly as the sequential int32 cast does.  Parses candidates [j0, j1),
+// writing only their rows; every frame must end at the next candidate
+// (the span's last too, against the next span's first), and
+// *last_end_byte is where frame j1 - 1 ends.  Returns candidates parsed
 // or -1 (caller falls back to the sequential raw parser).
 static int64_t pump_parse_raw(const uint8_t* buf, uint64_t buf_bytes,
                               const std::vector<Cand>& cands,
+                              size_t j0, size_t j1,
                               uint32_t sample_rate, uint32_t channels,
                               uint32_t bps, uint32_t block_size,
                               int32_t* out_buf, uint8_t* out_order,
@@ -2013,16 +2127,13 @@ static int64_t pump_parse_raw(const uint8_t* buf, uint64_t buf_bytes,
     FrameMachine<int32_t> fm[W];
     size_t idx[W];
     bool active[W] = {false, false, false, false};
-    size_t next = 0;
+    size_t next = j0;
 
     auto retire = [&](int s) -> bool {
         uint64_t endb = fm[s].g.pos() >> 3;
         size_t j = idx[s];
-        if (j + 1 < cands.size()) {
-            if (endb != cands[j + 1].pos) return false;
-        } else {
-            *last_end_byte = endb;
-        }
+        if (j + 1 < cands.size() && endb != cands[j + 1].pos) return false;
+        if (j + 1 == j1) *last_end_byte = endb;
         for (uint32_t c = 0; c < channels; c++) {
             size_t fc = j * channels + c;
             const RawSubframe& r = fm[s].raws[c];
@@ -2039,7 +2150,7 @@ static int64_t pump_parse_raw(const uint8_t* buf, uint64_t buf_bytes,
     };
     auto feed = [&](int s) -> bool {
         active[s] = false;
-        while (next < cands.size()) {
+        while (next < j1) {
             size_t j = next++;
             idx[s] = j;
             int32_t* panel = out_buf + (size_t)j * channels * block_size;
@@ -2057,7 +2168,7 @@ static int64_t pump_parse_raw(const uint8_t* buf, uint64_t buf_bytes,
     if (!pump_loop<int32_t>(fm, active, buf, buf_bytes,
                             [&](int s) { return retire(s) && feed(s); }))
         return -1;
-    return (int64_t)cands.size();
+    return (int64_t)(j1 - j0);
 }
 
 }  // namespace
@@ -2196,44 +2307,32 @@ int64_t nat_decode_frames_mt(
 
     if (!fallback && cands.size() >= 4) {
         uint32_t nt = std::min<uint32_t>(nthreads, (uint32_t)cands.size() / 2);
-        // span boundaries: candidate indices at ~equal byte intervals
-        std::vector<size_t> split(nt + 1);
-        uint64_t span_bytes = bytes_left(buf_bytes, start_byte) / nt;
-        split[0] = 0;
-        for (uint32_t t = 1; t < nt; t++) {
-            uint64_t target = start_byte + (uint64_t)t * span_bytes;
-            size_t j = split[t - 1];
-            while (j < cands.size() && cands[j].pos < target) j++;
-            split[t] = j;
-        }
-        split[nt] = cands.size();
+        // span boundaries: candidate indices at ~equal bytes of the call's
+        // own frames
+        std::vector<size_t> split = split_spans(cands, cands.size(), nt);
 
         std::vector<uint8_t> ok(nt, 0);
         std::vector<uint64_t> span_end(nt, 0);
-        std::vector<std::thread> pool;
-        for (uint32_t t = 0; t < nt; t++) {
-            pool.emplace_back([&, t]() {
-                size_t j0 = split[t], j1 = split[t + 1];
-                if (j0 >= j1) { ok[t] = 2; return; }  // empty span: skip
-                // each worker pumps its span: four frames in lockstep per
-                // thread (the pump's retire step enforces that every
-                // decoded frame ends exactly at the next candidate, which
-                // subsumes the old run-past / offset checks)
-                uint64_t span_last = 0;
-                int64_t got = bps <= 24
-                    ? pump_decode<int32_t>(buf, buf_bytes, cands, j0, j1,
-                                           sample_off, sample_rate,
-                                           channels, bps, max_block, out,
-                                           block_sizes, &span_last)
-                    : pump_decode<int64_t>(buf, buf_bytes, cands, j0, j1,
-                                           sample_off, sample_rate,
-                                           channels, bps, max_block, out,
-                                           block_sizes, &span_last);
-                span_end[t] = span_last;
-                ok[t] = got >= 0 ? 1 : 0;
-            });
-        }
-        for (auto& th : pool) th.join();
+        span_pool().run(nt, [&](uint32_t t) {
+            size_t j0 = split[t], j1 = split[t + 1];
+            if (j0 >= j1) { ok[t] = 2; return; }  // empty span: skip
+            // each worker pumps its span: four frames in lockstep per
+            // thread (the pump's retire step enforces that every decoded
+            // frame ends exactly at the next candidate, which subsumes
+            // the old run-past / offset checks)
+            uint64_t span_last = 0;
+            int64_t got = bps <= 24
+                ? pump_decode<int32_t>(buf, buf_bytes, cands, j0, j1,
+                                       sample_off, sample_rate, channels,
+                                       bps, max_block, out, block_sizes,
+                                       &span_last)
+                : pump_decode<int64_t>(buf, buf_bytes, cands, j0, j1,
+                                       sample_off, sample_rate, channels,
+                                       bps, max_block, out, block_sizes,
+                                       &span_last);
+            span_end[t] = span_last;
+            ok[t] = got >= 0 ? 1 : 0;
+        });
         bool all_ok = true;
         uint64_t last_end = 0;
         for (uint32_t t = 0; t < nt; t++) {
@@ -2740,21 +2839,43 @@ static int64_t parse_frames_raw_seq(
     return decoded;
 }
 
+// Frames a span must hold for a thread of its own to pay for its start
+// and join: the auto thread count is min(usable CPUs, K / this).
+static const size_t RAW_SPAN_FRAMES = 16;
+
+// The CPUs this process may run on (its affinity mask), at least 1.
+static uint32_t usable_cpus() {
+#ifdef __linux__
+    cpu_set_t set;
+    if (sched_getaffinity(0, sizeof(set), &set) == 0)
+        return std::max(1, CPU_COUNT(&set));
+#endif
+    return std::max(1u, std::thread::hardware_concurrency());
+}
+
 // Dispatcher: the lockstep raw pump handles the uniform-block prefix of
 // the stream (four frames in flight, residuals written straight into the
 // int32 device panels), then the sequential raw parser classifies
 // whatever follows — a short last frame, garbage, EOF — with exactly the
-// error surface the pure sequential run would produce.  Any screen
-// failure or speculation mismatch falls back to the sequential parser
-// for the whole range.
+// error surface the pure sequential run would produce.  The prefix is cut
+// into contiguous spans of about equal bytes, each pumped on a thread of
+// its own (nthreads: 0 = min(usable CPUs, K / RAW_SPAN_FRAMES), else at
+// most that many spans).  Where a span fails, the rows it may have written
+// are zeroed and the one-thread pump runs the whole prefix, so zeroed
+// outputs come back exactly as the one-thread call leaves them; any
+// screen failure or speculation mismatch there falls back to the
+// sequential parser for the whole range.  *spans is the spans that parsed
+// the prefix: 0 for the sequential parser, 1 for the one-thread pump.
 int64_t nat_parse_frames_raw(
     const uint8_t* buf, uint64_t buf_bytes, uint64_t start_bitpos,
     uint32_t n_frames, uint32_t sample_rate, uint32_t channels, uint32_t bps,
     uint32_t block_size, uint64_t remaining_samples,
     int32_t* out_buf, uint8_t* out_order, int8_t* out_shift,
     uint8_t* out_wasted, int32_t* out_qcoeffs, uint8_t* out_assignment,
-    uint32_t* out_block, uint64_t* end_bitpos, uint32_t* error) {
+    uint32_t* out_block, uint64_t* end_bitpos, uint32_t* error,
+    uint32_t nthreads, uint32_t* spans) {
     if (!tables_ready) init_tables();
+    *spans = 0;
     uint64_t start_byte = start_bitpos >> 3;
     // int32 panels need bps + the mid/side extra bit < 26 wide warm-ups;
     // wider streams keep the sequential parser's int64 fit-check.
@@ -2773,13 +2894,55 @@ int64_t nat_parse_frames_raw(
             && K > remaining_samples / block_size)
             K = remaining_samples / block_size;
         if (K >= 2 && cands[0].pos == start_byte) {
+            uint32_t nt = nthreads ? nthreads
+                : (uint32_t)std::min<size_t>(usable_cpus(),
+                                             K / RAW_SPAN_FRAMES);
+            nt = (uint32_t)std::min<size_t>(nt, K);
+            std::vector<size_t> split;
+            if (nt >= 2) split = split_spans(cands, K, nt);
             cands.resize(K);
+            auto pump = [&](size_t j0, size_t j1, uint64_t* end) {
+                return pump_parse_raw(
+                    buf, buf_bytes, cands, j0, j1, sample_rate, channels,
+                    bps, block_size, out_buf, out_order, out_shift,
+                    out_wasted, out_qcoeffs, out_assignment, out_block,
+                    end) >= 0;
+            };
             uint64_t last_end = 0;
-            int64_t got = pump_parse_raw(
-                buf, buf_bytes, cands, sample_rate, channels, bps,
-                block_size, out_buf, out_order, out_shift, out_wasted,
-                out_qcoeffs, out_assignment, out_block, &last_end);
-            if (got >= 0) {
+            bool ok = false;
+            if (nt >= 2) {
+                std::vector<uint8_t> span_ok(nt, 1);
+                std::vector<uint64_t> span_end(nt, 0);
+                span_pool().run(nt, [&](uint32_t t) {
+                    if (split[t] < split[t + 1])
+                        span_ok[t] = pump(split[t], split[t + 1],
+                                          &span_end[t]);
+                });
+                ok = true;
+                for (uint32_t t = 0; t < nt; t++) {
+                    ok = ok && span_ok[t];
+                    if (split[t] < split[t + 1]) {
+                        last_end = span_end[t];
+                        ++*spans;
+                    }
+                }
+                if (!ok) {
+                    *spans = 0;
+                    size_t fc = K * channels;
+                    memset(out_buf, 0, fc * block_size * sizeof(int32_t));
+                    memset(out_order, 0, fc);
+                    memset(out_shift, 0, fc);
+                    memset(out_wasted, 0, fc);
+                    memset(out_qcoeffs, 0, fc * 32 * sizeof(int32_t));
+                    memset(out_assignment, 0, K);
+                    memset(out_block, 0, K * sizeof(uint32_t));
+                }
+            }
+            if (!ok && pump(0, K, &last_end)) {
+                ok = true;
+                *spans = 1;
+            }
+            if (ok) {
                 uint64_t done_samples = (uint64_t)K * block_size;
                 uint64_t tail_rem = remaining_samples == ~0ull
                     ? ~0ull : remaining_samples - done_samples;

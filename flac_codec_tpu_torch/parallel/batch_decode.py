@@ -25,7 +25,10 @@ host parse, which raises the precise error or decodes it
 frame where the parsers stop) goes through one tail, :func:`_host_frame`:
 the native decoder first, ``Decoder.read_frame`` where that one stops.
 ``host_frames`` counts them and variable-block-size streams' frames,
-``device_frames`` the frames reconstructed on the device.
+``device_frames`` the frames reconstructed on the device.  The host
+parse runs a batch's frames in contiguous spans on the host's cores
+(native ``parse_frames_raw``); ``threaded_batches`` counts the batches
+it parsed on two or more, and each ``decode.parse`` span notes ``spans``.
 
 With ``mesh`` (``parallel.mesh``) the host parse fills each batch, each
 device reconstructs one contiguous shard of it on a stream of its own,
@@ -415,10 +418,12 @@ class BatchDecoder:
         # the pinned upload buffer (on CUDA) and its last copies' events
         self._staging = _Staging(any(d.type == "cuda" for d in devices))
         # real frames reconstructed on the device, frames the host
-        # decoded, and batches the device parse handed to the host parse
+        # decoded, batches the device parse handed to the host parse, and
+        # host parses that ran on two or more threads
         self.device_frames = 0
         self.host_frames = 0
         self.parse_fallbacks = 0
+        self.threaded_batches = 0
         # this decoder's spans' request id
         self.request_id = trace.new_request()
         self._profiler = trace.profiler_session("batch-decode",
@@ -554,6 +559,8 @@ class BatchDecoder:
                 dec.r.np_view(), dec.r.pos, self.batch_frames,
                 si.sample_rate, si.channels, si.bits_per_sample,
                 self.block_size, remaining)
+            trace.note("decode.parse", spans=raw["spans"])
+        self.threaded_batches += raw["spans"] >= 2
         n = raw["n"]
         if n == 0:
             # tail / error: host path (raises precise errors)
